@@ -1,0 +1,356 @@
+"""Riemannian trust-region solver with truncated CG, in PyTorch.
+
+Counterpart of ``dcora_tpu.core.rtr``: ROPTLIB's RTRNewton as configured by
+the reference (QuadraticOptimizer.cpp:234-289) -- GRAD_F stopping on the
+Riemannian gradient norm, Steihaug-Toint truncated CG with preconditioning,
+initial radius 100 / max radius 5x.
+
+The solver is generic over the state representation through a *backend*:
+
+  * ``RA_BACKEND``   -- RAState + the edge-path cost engine (problem.py);
+    exact residual-form numerics.
+  * ``FLAT_BACKEND`` -- flat [r_pad, kpad] tensors over the RCM-tiled
+    scalar ordering (tiled.py); every Q product goes through the SpMM
+    kernel.
+
+The Riemannian Hessian uses the Weingarten-corrected form for embedded
+Stiefel/oblique submanifolds,
+
+    Hess f(X)[eta] = P_T( Q eta - W(eta, egrad) ),
+    W_rot_i = eta_i sym(Y_i^T egrad_i),   W_sph_q = eta_q <s_q, egrad_q>.
+
+The JAX ``lax.while_loop``s become Python loops.  The tCG inner loop never
+waits for the device: its state updates are masked once it has converged,
+and the host learns of convergence through a non-blocking probe
+(:class:`_DoneProbe`), so it stops issuing iterations a few steps late at
+most, and those steps change nothing.  The outer loop reads one flag per
+iteration.  ``rtr_chunked`` (a TPU RPC-watchdog workaround), the
+one-accepted-step RBCD mode and the float32 tCG option are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from dcora_tpu_torch.core import problem as prob
+from dcora_tpu_torch.core import tiled
+from dcora_tpu_torch.core.lifted import RAState
+from dcora_tpu_torch.core.manifold import retract, tangent_project
+
+
+# --------------------------------------------------------------------------
+# algebra over RAState and bare tensors alike
+# --------------------------------------------------------------------------
+
+
+def _leaves(a):
+    return tuple(a) if isinstance(a, RAState) else (a,)
+
+
+def _rebuild(a, leaves):
+    return RAState(*leaves) if isinstance(a, RAState) else leaves[0]
+
+
+def tmap(fn, *args):
+    return _rebuild(args[0], [fn(*xs) for xs in zip(*map(_leaves, args))])
+
+
+def tvdot(a, b) -> torch.Tensor:
+    return sum(torch.sum(x * y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def tnorm(a) -> torch.Tensor:
+    return torch.sqrt(tvdot(a, a))
+
+
+def tscale(a, s):
+    return tmap(lambda x: s * x, a)
+
+
+def tadd(a, b):
+    return tmap(torch.add, a, b)
+
+
+def taxpy(s, x, y):
+    """y + s * x."""
+    return tmap(lambda xi, yi: yi + s * xi, x, y)
+
+
+def twhere(c, a, b):
+    return tmap(lambda ai, bi: torch.where(c, ai, bi), a, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class RTRConfig:
+    gradnorm_tol: float = 1e-2
+    max_outer: int = 3
+    max_inner: int = 50
+    initial_radius: float = 100.0
+    max_radius_factor: float = 5.0
+    # tCG kappa/theta stopping rule
+    kappa: float = 0.1
+    theta: float = 1.0
+    rho_accept: float = 0.1
+    # Manopt-style rho regularization: near convergence f(X) - f(X+) is
+    # dominated by eps*|f| cancellation noise; adding
+    # reg = rho_regularization*eps*max(1,|f|) to numerator and denominator
+    # drives rho -> 1 for noise-level steps.
+    rho_regularization: float = 1e3
+
+
+# --------------------------------------------------------------------------
+# backends
+# --------------------------------------------------------------------------
+
+
+class _RABackend:
+    """RAState + edge-path cost engine (problem.py)."""
+
+    def applyQ(self, P, X):
+        return prob.apply_Q(P, X)
+
+    def hessvec(self, P, V):
+        return prob.hessian_vec(P, V)
+
+    def tangent(self, P, X, V):
+        return tangent_project(X, V)
+
+    def hess_setup(self, P, X, egrad):
+        """sym(Y^T egrad) and the sphere inner products, once per outer."""
+        S = torch.einsum("nri,nrj->nij", X.rot, egrad.rot)
+        S = 0.5 * (S + S.transpose(1, 2))
+        s_inner = (X.sph * egrad.sph).sum(dim=-1, keepdim=True)
+        return S, s_inner
+
+    def weingarten(self, P, X, eta, aux):
+        S, s_inner = aux
+        return RAState(rot=torch.einsum("nrd,nde->nre", eta.rot, S),
+                       sph=eta.sph * s_inner, trn=torch.zeros_like(eta.trn))
+
+    def precond(self, P, M, X, V):
+        if M is None:
+            return V  # V is already tangent
+        return tangent_project(X, prob.apply_preconditioner(M, V))
+
+    def retract(self, P, X, V):
+        return retract(X, V)
+
+
+class _FlatBackend:
+    """Flat [r_pad, kpad] tensors over the tiled ordering (tiled.py).
+
+    P is a tiled.TiledProblem (preconditioner included); M is ignored.
+    """
+
+    def applyQ(self, P, X):
+        return tiled.apply_tiled(P, X)
+
+    def hessvec(self, P, V):
+        return tiled.apply_tiled(P, V)
+
+    def tangent(self, P, X, V):
+        return tiled.tangent_project_flat(P.meta, X, V)
+
+    def hess_setup(self, P, X, egrad):
+        return tiled.weingarten_setup(P.meta, X, egrad)
+
+    def weingarten(self, P, X, eta, aux):
+        return tiled.weingarten_apply(P.meta, eta, aux)
+
+    def precond(self, P, M, X, V):
+        return tiled.tangent_project_flat(P.meta, X,
+                                          tiled.precondition_flat(P, V))
+
+    def retract(self, P, X, V):
+        return tiled.retract_flat(P.meta, X, V)
+
+
+RA_BACKEND = _RABackend()
+FLAT_BACKEND = _FlatBackend()
+
+
+def riemannian_gradient(P, X: RAState, G: Optional[RAState]) -> RAState:
+    return tangent_project(X, prob.euclidean_gradient(P, X, G))
+
+
+def _rhess(be, P, X, eta, aux):
+    H = tmap(torch.sub, be.hessvec(P, eta), be.weingarten(P, X, eta, aux))
+    return be.tangent(P, X, H)
+
+
+class _DoneProbe:
+    """Non-blocking view of a device-side convergence flag.
+
+    On a CUDA device each posted flag is copied into pinned host memory
+    behind an event; `finished()` reads only flags whose copy has already
+    completed (Event.query does not wait), so the loop never stalls on the
+    device.  On the CPU the flag is read directly.
+    """
+
+    RING = 64
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.seen = False
+        if self.cuda:
+            self.host = torch.zeros(self.RING, dtype=torch.bool,
+                                    pin_memory=True)
+            self.pending = []  # (event, slot), oldest first
+            self.next = 0
+
+    def _read_oldest(self):
+        _, slot = self.pending.pop(0)
+        self.seen = self.seen or bool(self.host[slot])
+
+    def post(self, flag: torch.Tensor):
+        if not self.cuda:
+            self.seen = bool(flag)
+            return
+        if len(self.pending) == self.RING:
+            # the host is a full ring ahead of the device: waiting on the
+            # oldest copy costs nothing the device was not already spending
+            self.pending[0][0].synchronize()
+            self._read_oldest()
+        slot = self.next
+        self.next = (self.next + 1) % self.RING
+        self.host[slot].copy_(flag, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self.pending.append((ev, slot))
+
+    def finished(self) -> bool:
+        if self.cuda:
+            while not self.seen and self.pending and \
+                    self.pending[0][0].query():
+                self._read_oldest()
+        return self.seen
+
+
+class TCGResult(NamedTuple):
+    eta: object
+    Heta: object
+    inner_iters: torch.Tensor
+
+
+def truncated_cg(P, X, grad, egrad, M, radius, max_inner: int,
+                 kappa: float, theta: float, be=RA_BACKEND) -> TCGResult:
+    """Preconditioned Steihaug-Toint tCG for the trust-region subproblem.
+
+    After the iteration that converges (boundary hit, negative curvature or
+    a small residual) eta and Heta are frozen by masking, so iterations the
+    host issued before it saw the flag leave the result unchanged."""
+    zero = tmap(torch.zeros_like, grad)
+    r = grad
+    z = be.precond(P, M, X, r)
+    d = tscale(z, -1.0)
+    r0_norm = tnorm(r)
+    stop_tol = r0_norm * torch.clamp(r0_norm ** theta, max=kappa)
+    aux = be.hess_setup(P, X, egrad)
+    eta, Heta = zero, zero
+    rz = tvdot(r, z)
+    it = torch.zeros((), dtype=torch.int32, device=r0_norm.device)
+    done = r0_norm < 1e-300
+    probe = _DoneProbe(r0_norm.device)
+    probe.post(done)
+    for _ in range(max_inner):
+        if probe.finished():
+            break
+        Hd = _rhess(be, P, X, d, aux)
+        dHd = tvdot(d, Hd)
+        alpha = rz / torch.where(dHd == 0, torch.ones_like(dHd), dHd)
+        eta_next = taxpy(alpha, d, eta)
+        hit = (dHd <= 0) | (tnorm(eta_next) >= radius)
+        # largest tau >= 0 with ||eta + tau d|| = radius
+        dd = tvdot(d, d)
+        ed = tvdot(eta, d)
+        ee = tvdot(eta, eta)
+        disc = torch.clamp(ed * ed - dd * (ee - radius ** 2), min=0.0)
+        tau = (-ed + torch.sqrt(disc)) / torch.where(dd == 0,
+                                                     torch.ones_like(dd), dd)
+        eta_new = twhere(hit, taxpy(tau, d, eta), eta_next)
+        Heta_new = twhere(hit, taxpy(tau, Hd, Heta), taxpy(alpha, Hd, Heta))
+        r = taxpy(alpha, Hd, r)
+        z = be.precond(P, M, X, r)
+        rz_new = tvdot(r, z)
+        small = tnorm(r) <= stop_tol
+        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
+        d = taxpy(beta, d, tscale(z, -1.0))
+        rz = rz_new
+        # masked commit: a converged solve keeps its eta, Heta and count
+        eta = twhere(done, eta, eta_new)
+        Heta = twhere(done, Heta, Heta_new)
+        it = it + (~done).to(torch.int32)
+        done = done | hit | small
+        probe.post(done)
+    return TCGResult(eta=eta, Heta=Heta, inner_iters=it)
+
+
+class RTRResult(NamedTuple):
+    X: object
+    f_final: torch.Tensor
+    gradnorm_final: torch.Tensor
+    outer_iters: int
+    accepted: bool  # whether any step was accepted
+    # final trust-region radius; pass back as `radius0` to continue a solve
+    radius_final: Optional[torch.Tensor] = None
+
+
+def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
+        radius0=None) -> RTRResult:
+    """Riemannian trust region from X0 until gradnorm < cfg.gradnorm_tol or
+    cfg.max_outer outer iterations.  One host sync per outer iteration."""
+    lead = _leaves(X0)[0]
+    max_radius = cfg.initial_radius * cfg.max_radius_factor
+    radius = torch.as_tensor(cfg.initial_radius if radius0 is None
+                             else radius0, dtype=lead.dtype,
+                             device=lead.device)
+
+    def f_of(X, W):
+        fX = 0.5 * tvdot(W, X)
+        if G is not None:
+            fX = fX + tvdot(X, G)
+        return fX
+
+    def egrad_of(W):
+        return W if G is None else tadd(W, G)
+
+    eps = torch.finfo(lead.dtype).eps
+    X, W = X0, be.applyQ(P, X0)
+    gnorm = tnorm(be.tangent(P, X, egrad_of(W)))
+    it = 0
+    done = bool(gnorm < cfg.gradnorm_tol)
+    any_acc = done
+    while it < cfg.max_outer and not done:
+        fX = f_of(X, W)
+        egrad = egrad_of(W)
+        grad = be.tangent(P, X, egrad)
+        res = truncated_cg(P, X, grad, egrad, M, radius, cfg.max_inner,
+                           cfg.kappa, cfg.theta, be=be)
+        Xtest = be.retract(P, X, res.eta)
+        Wtest = be.applyQ(P, Xtest)
+        ftest = f_of(Xtest, Wtest)
+        model_decrease = -(tvdot(grad, res.eta)
+                           + 0.5 * tvdot(res.eta, res.Heta))
+        reg = cfg.rho_regularization * eps * torch.clamp(fX.abs(), min=1.0)
+        den = model_decrease + reg
+        rho = (fX - ftest + reg) / torch.where(
+            den.abs() < 1e-300, torch.full_like(den, 1e-300), den)
+        accept = (rho > cfg.rho_accept) & (ftest <= fX + reg)
+        X = twhere(accept, Xtest, X)
+        W = twhere(accept, Wtest, W)
+        hit_boundary = tnorm(res.eta) >= 0.99 * radius
+        radius = torch.where(
+            rho < 0.25, radius / 4.0,
+            torch.where(hit_boundary & (rho > 0.75),
+                        torch.clamp(2.0 * radius, max=max_radius), radius))
+        gnorm = tnorm(be.tangent(P, X, egrad_of(W)))
+        it += 1
+        flags = torch.stack([gnorm < cfg.gradnorm_tol, accept]).tolist()
+        done = flags[0]
+        any_acc = any_acc or flags[1]
+    return RTRResult(X=X, f_final=f_of(X, W), gradnorm_final=gnorm,
+                     outer_iters=it, accepted=any_acc,
+                     radius_final=radius)

@@ -1,0 +1,106 @@
+"""Single-robot local PGO (mirrors examples/SingleRobotExample.cpp).
+
+Counterpart of ``dcora_tpu.drivers.single_robot_pgo``: chordal
+initialization followed by a Riemannian trust-region solve at rank d, or,
+with --certify, the Riemannian staircase that certifies global optimality.
+
+Usage: python -m dcora_tpu_torch.drivers.single_robot_pgo file.g2o
+       [--certify] [--device cuda|cpu] [--log-dir DIR]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dcora_tpu_torch.core import lifted, problem as prob
+from dcora_tpu_torch.core.graph import LocalGraph
+from dcora_tpu_torch.core.init import chordal_initialization
+from dcora_tpu_torch.io import read_g2o_file
+from dcora_tpu_torch.solvers import solve_pgo
+from dcora_tpu_torch.staircase import StaircaseResult, riemannian_staircase
+from dcora_tpu_torch.types import ROptParameters
+from dcora_tpu_torch.utils.logger import Logger
+
+
+def resolve_device(device: str) -> torch.device:
+    """The named device, or an error when it is not available (the driver
+    never falls back to another device)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not "
+                           "available")
+    return dev
+
+
+def run(g2o_path: str, certify: bool = False, log_directory: str = "",
+        verbose: bool = True, opt_params: Optional[ROptParameters] = None,
+        r_max: int = 20, eta: float = 1e-3, device: str = "cuda",
+        result: Optional[dict] = None):
+    """Solve one g2o file; returns (T_out [n, d, d+1], f).
+
+    When `result` is a dict, the staircase result (StaircaseResult under
+    "staircase") and the init/staircase wall times are stored into it."""
+    dev = resolve_device(device)
+    ds = read_g2o_file(g2o_path)
+    ms = ds.pose_pose_measurements
+    d = ds.dim
+    t0 = time.time()
+    params = opt_params or ROptParameters(
+        gradnorm_tol=1e-4, RTR_iterations=200, RTR_tCG_iterations=200)
+    if certify:
+        g = LocalGraph(0, d + 2, d)
+        g.set_measurements(ms)
+        T = chordal_initialization(ms)
+        t_init = time.time() - t0
+        X0 = lifted.pad_rank(lifted.from_pose_array(T, device=dev), d + 2)
+        res: StaircaseResult = riemannian_staircase(
+            g, X0, r_min=d + 2, r_max=min(r_max, 20), opt_params=params,
+            min_eig_num_tol=eta)
+        T_out = np.zeros((g.n, d, d + 1))
+        T_out[:, :, :d] = res.rounded.rot.cpu().numpy()
+        T_out[:, :, d] = res.rounded.trn.cpu().numpy()
+        f = float(prob.cost(g.problem_data(device=dev), res.rounded))
+        if result is not None:
+            result.update(staircase=res, init_s=t_init,
+                          staircase_s=res.elapsed_s)
+        if verbose:
+            print(f"solvePGO: certified={res.certified} "
+                  f"rank={res.final_rank} f={f:.6f} "
+                  f"elapsed={time.time() - t0:.1f}s")
+    else:
+        T_out = solve_pgo(ms, params, device=dev)
+        g = LocalGraph(0, d, d)
+        g.set_measurements(ms)
+        f = float(prob.cost(g.problem_data(device=dev),
+                            lifted.from_pose_array(T_out, device=dev)))
+        if verbose:
+            print(f"solvePGO: f={f:.6f} elapsed={time.time() - t0:.1f}s")
+    if log_directory:
+        Logger(log_directory).log_trajectory(d, len(T_out), T_out,
+                                             "dcora_A.txt")
+    return T_out, f
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("g2o")
+    ap.add_argument("--certify", action="store_true")
+    ap.add_argument("--log-dir", default="")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to solve on (default: cuda)")
+    ap.add_argument("--r-max", type=int, default=20)
+    ap.add_argument("--eta", type=float, default=1e-3)
+    args = ap.parse_args(argv)
+    logging.basicConfig(level=logging.INFO)
+    run(args.g2o, certify=args.certify, log_directory=args.log_dir,
+        r_max=args.r_max, eta=args.eta, device=args.device)
+
+
+if __name__ == "__main__":
+    main()
