@@ -2,23 +2,35 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the certified single-robot PGO staircase of
-``dcora_tpu_torch.drivers.single_robot_pgo.run(..., certify=True,
-device="cuda")`` -- on the generated smallGrid3D set (125 poses) and on the
-10,648-pose grid (``generate_large_scale_g2o(target_poses=10_000)``), after
-it has built the SpMM kernel from ``dcora_tpu_torch/csrc/spmm_sym.cu`` and
-held it against its plain PyTorch version on the card.  Sequential and
-fail-closed: every phase prints a line and any failure raises, so the exit
-code is non-zero and the result line is not printed.  Imports nothing of
-JAX.  The last line of standard output is one JSON object:
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Builds the three SpMM kernel libraries from ``dcora_tpu_torch/csrc/`` (one
+nvcc per source, all started together) and holds every kernel against its
+plain PyTorch version on the card at the 10,648-pose grid's shapes.  Then it
+drives the port's paths, each with the kernels' launch counts set to 0 just
+before it and read just after:
+
+  * the certified single-robot PGO staircase of
+    ``dcora_tpu_torch.drivers.single_robot_pgo.run(..., certify=True,
+    device="cuda")`` on the generated smallGrid3D set (125 poses) and on the
+    10,648-pose grid (``generate_large_scale_g2o(target_poses=10_000)``),
+    through the owner-computes kernel (``csrc/spmm_sym.cu``);
+  * the same certified 10,648-pose solve under ``DCORA_SPMM_PACK=paired``,
+    through the grouped kernel (``csrc/spmm_grouped.cu``, R = 2 on the row
+    pairs and R = 1 on the leftover buckets);
+  * the bench entry points: ``tools.spmm_bench`` (every SpMM backend, the
+    per-tile kernel ``csrc/spmm_tile.cu`` included) and ``tools.bench``
+    for both packs.
+
+Sequential and fail-closed: every phase prints a line and any failure
+raises, so the exit code is non-zero and the result line is not printed.
+Imports nothing of JAX.  The last line of standard output is one JSON
+object: {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -26,13 +38,20 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(HERE, "tests", "data",
                          "torch_port_pgo_reference.json")
-KERNEL = dict(name="spmm_sym", route="cuda",
-              source="dcora_tpu_torch/csrc/spmm_sym.cu",
-              replaces="dcora_tpu/core/pallas_spmm.py:307")
+KERNELS = {
+    "spmm_sym": dict(name="spmm_sym", route="cuda",
+                     source="dcora_tpu_torch/csrc/spmm_sym.cu",
+                     replaces="dcora_tpu/core/pallas_spmm.py:307"),
+    "spmm_tile": dict(name="spmm_tile", route="cuda",
+                      source="dcora_tpu_torch/csrc/spmm_tile.cu",
+                      replaces="dcora_tpu/core/pallas_spmm.py:37"),
+    "spmm_paired": dict(name="spmm_paired", route="cuda",
+                        source="dcora_tpu_torch/csrc/spmm_grouped.cu",
+                        replaces="dcora_tpu/core/pallas_spmm.py:515"),
+}
 # relative to max|W|: a different summation order, plus f32 rounding
 TOL = {"float32": 1e-5, "float64": 1e-12}
 F_RTOL = 1e-8  # certified f* against the JAX reference values
-LAUNCHES = 100  # launches per timing
 
 
 def phase(msg: str):
@@ -48,52 +67,30 @@ def device_phase(torch):
     require(torch.cuda.is_available(),
             "torch.cuda.is_available() is false; this script runs only on "
             "a CUDA device")
+    from dcora_tpu_torch.tools.common import card
+
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    require(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     phase(f"[device] {name}; torch {torch.__version__}; CUDA "
           f"{torch.version.cuda}; {torch.cuda.device_count()} device(s)")
-    power = smi.stdout.strip().splitlines()[0]
+    power = card()
     print(power, flush=True)
     return name, power
 
 
-def time_ms(torch, fn, n=LAUNCHES):
-    """Milliseconds per launch of fn: CUDA events around n launches issued
-    back to back, after a warm-up."""
-    for _ in range(5):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / n
-
-
-def time_pair_ms(torch, kern, plain, rounds=3):
-    """Median per-launch ms of the kernel and of its plain version, timed in
-    turns (kernel, plain, plain, kernel, ...) on the same inputs."""
-    ts = {kern: [], plain: []}
-    for i in range(rounds):
-        for fn in ((kern, plain) if i % 2 == 0 else (plain, kern)):
-            ts[fn].append(time_ms(torch, fn))
-    return tuple(sorted(ts[fn])[rounds // 2] for fn in (kern, plain))
-
-
 def kernel_phase(torch, path10k):
-    """The kernel against spmm_sym_plain on the card at the main path's
-    shapes: r_pad 8 and 16 in f32 and f64, and r_pad 8 with one live row
-    (the tiled Lanczos operand)."""
-    from dcora_tpu_torch.core import spmm, tiled
+    """Every kernel against its plain version on the card, at the main
+    paths' shapes: r_pad 8 and 16 in f32 and f64, and r_pad 8 with one live
+    row (the tiled Lanczos operand).  Kernel 1 (spmm_sym) on the CSR,
+    kernel 2 (spmm_tile) on the per-tile list padded to 8-tile chunks,
+    kernel 3 (spmm_grouped.cu) on the paired buckets (R = 2 and R = 1
+    together, as apply_tiled runs them) and on the R = 1 leftover buckets
+    alone.  All timed in turns on the same X."""
+    from dcora_tpu_torch.core import spmm, spmm_pack, tiled
     from dcora_tpu_torch.core.graph import LocalGraph
     from dcora_tpu_torch.io import read_g2o_file
     from dcora_tpu_torch.solvers import make_preconditioner
+    from dcora_tpu_torch.tools.common import LAUNCHES, time_turns_ms
+    from dcora_tpu_torch.tools.spmm_bench import padded_tile_list
 
     ds = read_g2o_file(path10k)
     g = LocalGraph(0, 5, 3)
@@ -103,40 +100,65 @@ def kernel_phase(torch, path10k):
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.float32, torch.float64):
-        TP = tiled.build_tiled(P, g.dims, dtype=dtype, precond=M)
+        TP = tiled.build_tiled(P, g.dims, dtype=dtype, precond=M,
+                               pack="bucketed")
         Q = TP.Q
+        tr, tc, tl = padded_tile_list(Q)
+        pairs = spmm.buckets_to_tensors(spmm_pack.build_row_pairs_bucketed(
+            Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy(),
+            Q.tiles.cpu().numpy(), T=TP.meta.T), dtype, "cuda")
+        leftovers = [b for b in pairs if b[0].dim() == 1]
+        require(any(b[0].dim() == 2 for b in pairs) and leftovers,
+                "the paired pack made no two-row or no leftover bucket")
         for r_pad, live in ((8, 8), (16, 16), (8, 1)):
             X = torch.zeros((r_pad, TP.meta.kpad), dtype=dtype,
                             device="cuda")
             X[:live] = torch.randn((live, TP.meta.kpad), generator=gen,
                                    dtype=dtype, device="cuda")
-
-            def kern():
-                return spmm.spmm_sym(Q.tiles, Q.tile_rows, Q.tile_cols,
-                                     Q.out_ptr, Q.ent_tile, Q.ent_src, X)
-
-            def plain():
-                return spmm.spmm_sym_plain(Q.tiles, Q.tile_rows,
-                                           Q.tile_cols, X)
-
-            W, Wp = kern(), plain()
-            torch.cuda.synchronize()
-            require(bool(torch.isfinite(W).all()), "kernel output not finite")
-            abs_err = float((W - Wp).abs().max())
-            scale = float(Wp.abs().max())
+            cases = {
+                "spmm_sym": (
+                    lambda: spmm.spmm_sym(Q.tiles, Q.tile_rows, Q.tile_cols,
+                                          Q.out_ptr, Q.ent_tile, Q.ent_src,
+                                          X),
+                    lambda: spmm.spmm_sym_plain(Q.tiles, Q.tile_rows,
+                                                Q.tile_cols, X)),
+                "spmm_tile": (
+                    lambda: spmm.spmm_symmetric(tr, tc, tl, X),
+                    lambda: spmm.spmm_symmetric_plain(tr, tc, tl, X)),
+                "spmm_paired": (
+                    lambda: spmm.spmm_bucketed(pairs, X),
+                    lambda: spmm.spmm_bucketed_plain(pairs, X)),
+                "spmm_grouped_r1": (
+                    lambda: spmm.spmm_bucketed(leftovers, X),
+                    lambda: spmm.spmm_bucketed_plain(leftovers, X)),
+            }
             dt = str(dtype).split(".")[-1]
-            require(abs_err <= TOL[dt] * scale,
-                    f"kernel disagrees with plain ({dt}, r_pad {r_pad}, "
-                    f"live {live}): {abs_err:.3e} > {TOL[dt]:.0e} * "
-                    f"{scale:.3e}")
-            ms, plain_ms = time_pair_ms(torch, kern, plain)
-            rows.append(dict(dtype=dt, r_pad=r_pad, live=live,
-                             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms))
-            phase(f"[kernel] {dt} r_pad={r_pad} live_rows={live} "
-                  f"tiles={Q.tiles.shape[0]} nt={TP.meta.nt} "
-                  f"max_abs_err={abs_err:.3e} (rel {abs_err / scale:.2e}) "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} (per launch, "
-                  f"{LAUNCHES} back to back, median of 3 turns)")
+            errs = {}
+            for name, (kern, plain) in cases.items():
+                W, Wp = kern(), plain()
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(W).all()),
+                        f"{name} output not finite")
+                abs_err = float((W - Wp).abs().max())
+                scale = float(Wp.abs().max())
+                require(abs_err <= TOL[dt] * scale,
+                        f"{name} disagrees with plain ({dt}, r_pad {r_pad}, "
+                        f"live {live}): {abs_err:.3e} > {TOL[dt]:.0e} * "
+                        f"{scale:.3e}")
+                require(not W[live:].any(), f"{name}: zero rows not zero")
+                errs[name] = (abs_err, abs_err / scale)
+            ms = time_turns_ms([f for pair in cases.values() for f in pair])
+            for i, name in enumerate(cases):
+                rows.append(dict(kernel=name, dtype=dt, r_pad=r_pad,
+                                 live=live, max_abs_err=errs[name][0],
+                                 ms=ms[2 * i], plain_ms=ms[2 * i + 1]))
+                phase(f"[kernel] {name} {dt} r_pad={r_pad} live_rows={live} "
+                      f"tiles={Q.tiles.shape[0]} nt={TP.meta.nt} "
+                      f"max_abs_err={errs[name][0]:.3e} (rel "
+                      f"{errs[name][1]:.2e}) kernel_ms={ms[2 * i]:.4f} "
+                      f"plain_ms={ms[2 * i + 1]:.4f} spmm_sym_ms={ms[0]:.4f} "
+                      f"(per launch, {LAUNCHES} back to back, median of 3 "
+                      f"turns)")
     return rows
 
 
@@ -179,6 +201,52 @@ def slice_phase(torch, name, path, ref):
     return wall
 
 
+def paired_phase(torch, path, ref):
+    """The certified 10,648-pose solve under DCORA_SPMM_PACK=paired: every
+    tile product of the f32 and f64 phases and of the tiled Lanczos runs on
+    the paired buckets."""
+    from dcora_tpu_torch.core import spmm
+
+    old = os.environ.get("DCORA_SPMM_PACK")
+    os.environ["DCORA_SPMM_PACK"] = "paired"
+    try:
+        spmm.reset_launches()
+        wall = slice_phase(torch, "grid10k paired pack", path, ref)
+        counts = spmm.launch_counts()
+    finally:
+        if old is None:
+            del os.environ["DCORA_SPMM_PACK"]
+        else:
+            os.environ["DCORA_SPMM_PACK"] = old
+    require(counts["spmm_paired"] > 0 and counts["spmm_grouped"] > 0,
+            f"the paired solve did not launch the grouped kernel: {counts}")
+    require(counts["spmm_sym"] == 0 and counts["spmm_symmetric"] == 0,
+            f"the paired solve launched another SpMM kernel: {counts}")
+    phase(f"[launches] paired solve: {counts} (wall {wall:.2f}s)")
+    return counts
+
+
+def bench_phase(torch, path):
+    """The bench entry points in process: spmm_bench (the path of the
+    per-tile kernel), then tools.bench for both packs."""
+    from dcora_tpu_torch.core import spmm
+    from dcora_tpu_torch.tools import bench, spmm_bench
+
+    spmm.reset_launches()
+    res = spmm_bench.run(path)
+    counts = spmm.launch_counts()
+    require(counts["spmm_symmetric"] > 0,
+            f"spmm_bench never launched the per-tile kernel: {counts}")
+    require(max(r["rel_err"] for r in res["rows"]) <= TOL["float32"],
+            "an spmm_bench row disagrees with the plain tile path")
+    phase(f"[launches] spmm_bench: {counts}")
+    for pack in ("bucketed", "paired"):
+        out = bench.run(path, pack=pack)
+        require(out["value"] > 0, f"bench ({pack}) measured nothing")
+        print(json.dumps(out), flush=True)
+    return counts
+
+
 def main() -> int:
     require(os.path.isdir(os.path.join(HERE, "dcora_tpu_torch")),
             "dcora_tpu_torch/ is not beside this script: run it from a "
@@ -187,15 +255,18 @@ def main() -> int:
     import torch
 
     kind, _ = device_phase(torch)
+    t_start = time.perf_counter()
 
     from dcora_tpu_torch import datasets
     from dcora_tpu_torch.core import spmm
 
     t0 = time.perf_counter()
-    spmm.LIBRARY.get()
-    phase(f"[build] {spmm.LIBRARY.path()} in "
-          f"{time.perf_counter() - t0:.2f}s (nvcc "
-          f"{spmm.LIBRARY.build_seconds or 0.0:.2f}s)")
+    paths = spmm.build_all()
+    phase(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f}s"
+          " (one nvcc per source, in parallel): " + ", ".join(
+              f"{os.path.basename(p)} (nvcc "
+              f"{spmm.LIBRARIES[k].build_seconds or 0.0:.2f}s)"
+              for k, p in paths.items()))
 
     with open(REFERENCE) as fh:
         refs = json.load(fh)
@@ -213,22 +284,37 @@ def main() -> int:
 
         rows = kernel_phase(torch, paths["grid10k"])
 
-        spmm.spmm_sym.launches = 0
+        os.environ.pop("DCORA_SPMM_PACK", None)  # the default CSR pack
+        spmm.reset_launches()
         walls = {name: slice_phase(torch, name, paths[name], refs[name])
                  for name in ("smallGrid3D", "grid10k")}
-        launches = spmm.spmm_sym.launches
-    require(launches > 0, "the main path never launched the SpMM kernel")
-    phase(f"[launches] spmm_sym launched {launches} times on the main path "
-          f"(10,648-pose grid wall {walls['grid10k']:.2f}s)")
+        counts = spmm.launch_counts()
+        require(counts["spmm_sym"] > 0,
+                "the main path never launched the SpMM kernel")
+        phase(f"[launches] default pack: {counts} (10,648-pose grid wall "
+              f"{walls['grid10k']:.2f}s)")
+        paired = paired_phase(torch, paths["grid10k"], refs["grid10k"])
+        benched = bench_phase(torch, paths["grid10k"])
 
-    # f64 at r_pad 8, all rows live: the f64-tile phase's tCG product, the
-    # shape the 10,648-pose solve launches most
-    main_row = next(r for r in rows if r["dtype"] == "float64"
-                    and r["r_pad"] == 8 and r["live"] == 8)
-    print(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in rows),
-        ms=main_row["ms"], plain_ms=main_row["plain_ms"])]}), flush=True)
+    # the row each kernel's path launches most: f64 at r_pad 8 for the
+    # certified solves (the f64-tile phase's tCG product), f32 at r_pad 8
+    # for spmm_bench
+    launches = dict(spmm_sym=counts["spmm_sym"],
+                    spmm_tile=benched["spmm_symmetric"],
+                    spmm_paired=paired["spmm_paired"])
+    main_dtype = dict(spmm_sym="float64", spmm_tile="float32",
+                      spmm_paired="float64")
+    entries = []
+    for name, meta in KERNELS.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        main_row = next(r for r in mine if r["dtype"] == main_dtype[name]
+                        and r["r_pad"] == 8 and r["live"] == 8)
+        entries.append(dict(meta, launches=launches[name],
+                            max_abs_err=max(r["max_abs_err"] for r in mine),
+                            ms=main_row["ms"], plain_ms=main_row["plain_ms"]))
+    elapsed = time.perf_counter() - t_start
+    phase(f"[done] {elapsed:.1f}s after the device check")
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,8 +14,9 @@ Numerics policy
   Both switches are set here, on import, because a float32 convolution or
   matmul that silently drops to TF32 (about three decimal digits) would
   break the certified-optimum parity with the reference.
-* The hand-written SpMM kernel (``core/spmm.py``, ``csrc/spmm_sym.cu``)
-  accumulates in the working type with plain FMA: no TF32, no bf16.
+* The hand-written SpMM kernels (``core/spmm.py``; ``csrc/spmm_sym.cu``,
+  ``csrc/spmm_tile.cu``, ``csrc/spmm_grouped.cu``) accumulate in the
+  working type with plain FMA: no TF32, no bf16.
 """
 
 import torch

@@ -16,7 +16,7 @@ import torch
 
 from dcora_tpu_torch.core import problem as prob
 from dcora_tpu_torch.core.lifted import RAState
-from dcora_tpu_torch.core.spmm import build_output_csr
+from dcora_tpu_torch.core.spmm import build_output_csr, buckets_to_tensors
 from dcora_tpu_torch.core.tiled import TiledMeta, TiledProblem, TiledQ
 
 
@@ -76,15 +76,23 @@ def tiled_problem(TPj, device="cpu", dtype=None) -> TiledProblem:
     The upper-triangular tile list comes from the bucketed groups
     (``Q.grp_buckets``) when the JAX build made them, and otherwise from the
     full tile list filtered to row <= col.  All-zero tiles (chunk padding,
-    pad slots) are dropped.  ``dtype`` defaults to the JAX tiles' dtype."""
+    pad slots) are dropped.  When the JAX build was paired
+    (``DCORA_SPMM_PACK=paired``: some bucket has two rows per group), its
+    buckets are also carried across as ``Q.grp_buckets``, so both packages
+    apply the same layout.  ``dtype`` defaults to the JAX tiles' dtype."""
     m = TPj.meta
     meta = TiledMeta(d=m.d, n=m.n, l=m.l, b=m.b, T=m.T, nt=m.nt)
     T = meta.T
     tiles_j = _a(TPj.Q.tiles)
     dtype = dtype or (torch.float32 if tiles_j.dtype == np.float32
                       else torch.float64)
-    if getattr(TPj.Q, "grp_buckets", None) is not None:
-        by_key = _tiles_from_buckets(TPj.Q.grp_buckets, T)
+    buckets = getattr(TPj.Q, "grp_buckets", None)
+    paired = None
+    if buckets is not None:
+        by_key = _tiles_from_buckets(buckets, T)
+        if any(_a(gr).ndim == 2 for gr, _, _ in buckets):
+            paired = buckets_to_tensors(
+                [tuple(_a(x) for x in b) for b in buckets], dtype, device)
     else:
         rows, cols = _a(TPj.Q.tile_rows), _a(TPj.Q.tile_cols)
         by_key = {}
@@ -115,6 +123,7 @@ def tiled_problem(TPj, device="cpu", dtype=None) -> TiledProblem:
         ent_src=dev(ent_src, torch.int32),
         ra_of_fl=dev(_a(TPj.Q.ra_of_fl), torch.int64),
         fl_of_ra=dev(_a(TPj.Q.fl_of_ra), torch.int64),
+        grp_buckets=paired,
     )
     # the JAX package stores the pose inverses planar, [dh, dh, n]
     return TiledProblem(

@@ -5,7 +5,10 @@ reverse Cuthill-McKee collapses the scalar matrix Q into a narrow band, so
 Q partitions into a few hundred dense 128x128 tiles and the SpMM W = X Q
 becomes a block-sparse product at hardware-friendly granularity.  Q is
 symmetric, so only its upper-triangular tiles are stored, and the product
-runs through the hand-written kernel of :mod:`dcora_tpu_torch.core.spmm`.
+runs through a hand-written kernel of :mod:`dcora_tpu_torch.core.spmm`:
+the owner-computes CSR kernel by default, or the two-row K-fused grouped
+kernel when the build packs the tiles in pairs (``pack="paired"``, or
+``DCORA_SPMM_PACK=paired`` as in the JAX package).
 
 Layout contract
 ---------------
@@ -24,6 +27,7 @@ tile-list pre-padding (an XLA temp-memory workaround).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -33,7 +37,13 @@ from dcora_tpu_torch.core import lifted
 from dcora_tpu_torch.core import problem as prob
 from dcora_tpu_torch.core.lifted import RAState
 from dcora_tpu_torch.core.manifold import inv_sqrt_psd
-from dcora_tpu_torch.core.spmm import build_output_csr, spmm_sym
+from dcora_tpu_torch.core.spmm import (
+    build_output_csr,
+    buckets_to_tensors,
+    spmm_bucketed,
+    spmm_sym,
+)
+from dcora_tpu_torch.core.spmm_pack import build_row_pairs_bucketed
 from dcora_tpu_torch.types import ProblemDims
 
 
@@ -56,6 +66,10 @@ class TiledQ(NamedTuple):
     # permutations between RA scalar ordering and flat ordering
     ra_of_fl: torch.Tensor   # i64[kpad]; k points at an appended zero column
     fl_of_ra: torch.Tensor   # i64[k]
+    # two-row K-fused wide groups plus their single-row leftover buckets
+    # ((grows, gcols, wide), ...) from spmm_pack.build_row_pairs_bucketed,
+    # at the tile dtype; when set, apply_tiled runs spmm_bucketed on them
+    grp_buckets: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,7 +321,7 @@ def build_tiled(P: prob.ProblemData, dims: ProblemDims, T: int = 128,
                 dtype=torch.float32,
                 precond: Optional[prob.Preconditioner] = None,
                 reg: float = 0.1, tile_precond=False,
-                device=None) -> TiledProblem:
+                device=None, pack: Optional[str] = None) -> TiledProblem:
     """Host-side: RCM order, tile the scalar Q, invert the Jacobi blocks.
 
     `dtype` selects the tile precision (f32 for the fast phase, f64 for the
@@ -315,8 +329,15 @@ def build_tiled(P: prob.ProblemData, dims: ProblemDims, T: int = 128,
     factorization; otherwise one is built with regularization `reg`.
     `tile_precond` is False (per-pose Jacobi), True (diagonal-tile Jacobi)
     or "btd" (block-tridiagonal band factorization).  Tensors land on
-    `device` (default: P's device).
+    `device` (default: P's device).  `pack` selects the SpMM layout:
+    "paired" also packs the stored upper tiles, at `dtype`, into two-row
+    K-fused groups (TiledQ.grp_buckets) for the grouped kernel; anything
+    else keeps the CSR kernel alone.  None reads DCORA_SPMM_PACK.  The tile
+    list and CSR are kept either way (the BTD factor and the certifier's
+    host Q read them).
     """
+    if pack is None:
+        pack = os.environ.get("DCORA_SPMM_PACK", "bucketed")
     device = P.device if device is None else device
     n, l, b, d = dims.n, dims.l, dims.b, dims.d
     dh = d + 1
@@ -379,6 +400,14 @@ def build_tiled(P: prob.ProblemData, dims: ProblemDims, T: int = 128,
         return torch.as_tensor(np.ascontiguousarray(a), device=device,
                                dtype=dt)
 
+    grp_buckets = None
+    if pack == "paired":
+        np_dt = np.float32 if dtype == torch.float32 else np.float64
+        grp_buckets = buckets_to_tensors(
+            build_row_pairs_bucketed(up_rows, up_cols,
+                                     up_tiles.astype(np_dt), T=T),
+            dtype, device)
+
     meta = TiledMeta(d=d, n=n, l=l, b=b, T=T, nt=nt)
     Q = TiledQ(
         tiles=dev(up_tiles, dtype),
@@ -389,6 +418,7 @@ def build_tiled(P: prob.ProblemData, dims: ProblemDims, T: int = 128,
         ent_src=dev(ent_src, torch.int32),
         ra_of_fl=dev(ra_of_fl, torch.int64),
         fl_of_ra=dev(fl_of_ra, torch.int64),
+        grp_buckets=grp_buckets,
     )
 
     # block-Jacobi preconditioner in flat (RCM) order
@@ -484,8 +514,11 @@ def _factor_btd(dense, trow, tcol, nt: int, T: int, reg: float):
 
 def apply_tiled(TP: TiledProblem, Xf: torch.Tensor) -> torch.Tensor:
     """W = Xf Q (symmetric Q):  [r_pad, kpad] -> [r_pad, kpad], through the
-    SpMM kernel (its plain version on the CPU)."""
+    grouped kernel on the paired buckets when the build made them and the
+    CSR kernel otherwise (their plain versions on the CPU)."""
     Q = TP.Q
+    if Q.grp_buckets is not None:
+        return spmm_bucketed(Q.grp_buckets, Xf.contiguous())
     return spmm_sym(Q.tiles, Q.tile_rows, Q.tile_cols, Q.out_ptr,
                     Q.ent_tile, Q.ent_src, Xf.contiguous())
 

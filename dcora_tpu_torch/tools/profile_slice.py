@@ -9,8 +9,10 @@ warm up (kernel build, library handles), once on the host clock alone, and
 once under ``torch.profiler`` with CUDA activity.  Reports the wall time of
 each stage, the device's busy and idle share of the unprofiled wall (device
 busy = the union of kernel intervals in the profiled run), the kernel time
-by name, and the SpMM kernel's launches and share.  Prints one JSON object
-and writes it to ``--out`` when given.  Refuses to run without CUDA.
+by name, and the SpMM kernels' launches and share.  The SpMM layout is the
+build's default: set ``DCORA_SPMM_PACK=paired`` to profile the paired
+buckets.  Prints one JSON object and writes it to ``--out`` when given.
+Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import tempfile
 import time
 from collections import defaultdict
@@ -28,11 +29,12 @@ import torch
 from dcora_tpu_torch import datasets
 from dcora_tpu_torch.core import spmm
 from dcora_tpu_torch.drivers.single_robot_pgo import run
+from dcora_tpu_torch.tools import common
 
 
 def _solve(path: str) -> dict:
     res = {}
-    spmm.spmm_sym.launches = 0
+    spmm.reset_launches()
     t0 = time.perf_counter()
     _, f = run(path, certify=True, device="cuda", verbose=False, result=res)
     torch.cuda.synchronize()
@@ -40,7 +42,8 @@ def _solve(path: str) -> dict:
     return dict(wall_s=time.perf_counter() - t0, f=f, rank=st.final_rank,
                 certified=st.certified, init_s=res["init_s"],
                 stages_s=dict(st.stage_seconds),
-                spmm_launches=spmm.spmm_sym.launches)
+                spmm_launches=sum(spmm.launch_counts().values()),
+                launches=spmm.launch_counts())
 
 
 def _kernel_summary(prof) -> dict:
@@ -69,7 +72,8 @@ def _kernel_summary(prof) -> dict:
                 by_name=[dict(name=k[:120], count=c, seconds=s)
                          for k, (c, s) in top[:20]],
                 spmm_seconds=sum(s for k, (c, s) in by_name.items()
-                                 if "spmm_sym_kernel" in k))
+                                 if any(f"spmm_{n}_kernel" in k for n in
+                                        ("sym", "tile", "grouped"))))
 
 
 def main(argv=None) -> int:
@@ -77,11 +81,8 @@ def main(argv=None) -> int:
     ap.add_argument("--target-poses", type=int, default=10_000)
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_slice: no CUDA device")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
+    common.require_cuda("profile_slice")
+    smi = common.card()
     with tempfile.TemporaryDirectory() as tmp:
         path = datasets.generate_large_scale_g2o(
             os.path.join(tmp, "grid.g2o"), target_poses=args.target_poses)
@@ -94,6 +95,7 @@ def main(argv=None) -> int:
     busy = ks["kernel_busy_s"]
     out = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                torch=torch.__version__, target_poses=args.target_poses,
+               spmm_pack=os.environ.get("DCORA_SPMM_PACK", "bucketed"),
                unprofiled=plain, profiled=profiled, **ks,
                device_busy_share=busy / plain["wall_s"],
                device_idle_share=1.0 - busy / plain["wall_s"],
