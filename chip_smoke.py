@@ -3,19 +3,23 @@
     python3 chip_smoke.py
 
 Builds the three SpMM kernel libraries from ``dcora_tpu_torch/csrc/`` (one
-nvcc per source, all started together) and holds every kernel against its
-plain PyTorch version on the card at the 10,648-pose grid's shapes.  Then it
-drives the port's paths, each with the kernels' launch counts set to 0 just
-before it and read just after:
+nvcc per source, all started together; ``-Xptxas -v``'s registers and
+spills are printed) and holds every kernel against its plain PyTorch
+version on the card at the 10,648-pose grid's shapes, timed in turns with
+the library yardstick ``torch.sparse.mm`` on the same Q and beside the
+product's bound.  Then it drives the port's paths, each with the kernels'
+launch counts set to 0 just before it and read just after:
 
   * the certified single-robot PGO staircase of
     ``dcora_tpu_torch.drivers.single_robot_pgo.run(..., certify=True,
     device="cuda")`` on the generated smallGrid3D set (125 poses) and on the
     10,648-pose grid (``generate_large_scale_g2o(target_poses=10_000)``),
-    through the owner-computes kernel (``csrc/spmm_sym.cu``);
+    through the owner-computes strip kernel (``csrc/spmm_sym.cu``), one
+    launch per tile product;
   * the same certified 10,648-pose solve under ``DCORA_SPMM_PACK=paired``,
-    through the grouped kernel (``csrc/spmm_grouped.cu``, R = 2 on the row
-    pairs and R = 1 on the leftover buckets);
+    through the grouped kernel (``csrc/spmm_grouped.cu``: the two-row packs
+    and their single-row leftovers, compacted to their non-empty
+    sub-blocks), one launch per tile product;
   * the bench entry points: ``tools.spmm_bench`` (every SpMM backend, the
     per-tile kernel ``csrc/spmm_tile.cu`` included) and ``tools.bench``
     for both packs.
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import tempfile
 import time
@@ -49,6 +54,7 @@ KERNELS = {
                         source="dcora_tpu_torch/csrc/spmm_grouped.cu",
                         replaces="dcora_tpu/core/pallas_spmm.py:515"),
 }
+LIBRARY = "library"  # torch.sparse.mm on the full symmetric Q, CSR
 # relative to max|W|: a different summation order, plus f32 rounding
 TOL = {"float32": 1e-5, "float64": 1e-12}
 F_RTOL = 1e-8  # certified f* against the JAX reference values
@@ -77,19 +83,54 @@ def device_phase(torch):
     return name, power
 
 
+def ptxas_lines(log: str):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    entry function in an ``nvcc -Xptxas -v`` log."""
+    out, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1))) + spill)
+            fn, spill = None, (0, 0)
+    return out
+
+
+def build_phase(spmm):
+    t0 = time.perf_counter()
+    libs = spmm.build_all()
+    phase(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.2f}s"
+          " (one nvcc per source, in parallel): " + ", ".join(
+              f"{os.path.basename(lib.path())} (nvcc "
+              f"{lib.build_seconds or 0.0:.2f}s)" for lib in libs.values()))
+    for name, lib in libs.items():
+        for fn, regs, st, ld in ptxas_lines(lib.build_log):
+            phase(f"[ptxas] {name} (B={lib.block}) {fn}: {regs} registers, "
+                  f"spill stores {st} B, spill loads {ld} B")
+            require(st == 0 and ld == 0, f"{fn} spills registers")
+
+
 def kernel_phase(torch, path10k):
     """Every kernel against its plain version on the card, at the main
     paths' shapes: r_pad 8 and 16 in f32 and f64, and r_pad 8 with one live
-    row (the tiled Lanczos operand).  Kernel 1 (spmm_sym) on the CSR,
-    kernel 2 (spmm_tile) on the per-tile list padded to 8-tile chunks,
-    kernel 3 (spmm_grouped.cu) on the paired buckets (R = 2 and R = 1
-    together, as apply_tiled runs them) and on the R = 1 leftover buckets
-    alone.  All timed in turns on the same X."""
-    from dcora_tpu_torch.core import spmm, spmm_pack, tiled
+    row (the tiled Lanczos operand).  Kernel 1 (spmm_sym) on the strip CSR
+    of the default build, kernel 2 (spmm_tile) on the per-tile list padded
+    to 8-tile chunks, kernel 3 (spmm_grouped.cu) on the paired pack's
+    compacted sub-blocks (two-row groups and single-row leftovers in one
+    launch), as apply_tiled runs them.  All timed in turns on the same X
+    with the library call torch.sparse.mm(Q_csr, X^T) (X^T made outside
+    the timed call); each row carries the product's bound."""
+    from dcora_tpu_torch.core import spmm, tiled
     from dcora_tpu_torch.core.graph import LocalGraph
     from dcora_tpu_torch.io import read_g2o_file
     from dcora_tpu_torch.solvers import make_preconditioner
-    from dcora_tpu_torch.tools.common import LAUNCHES, time_turns_ms
+    from dcora_tpu_torch.tools import common
     from dcora_tpu_torch.tools.spmm_bench import padded_tile_list
 
     ds = read_g2o_file(path10k)
@@ -99,67 +140,86 @@ def kernel_phase(torch, path10k):
     M = make_preconditioner(g, P)
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
+    gbs = common.nominal_hbm_gbs(torch.cuda.get_device_name(0)) or \
+        common.NOMINAL_HBM_GBS[0][1]
     for dtype in (torch.float32, torch.float64):
         TP = tiled.build_tiled(P, g.dims, dtype=dtype, precond=M,
-                               pack="bucketed")
-        Q = TP.Q
+                               pack="paired")
+        Q, kpad = TP.Q, TP.meta.kpad
         tr, tc, tl = padded_tile_list(Q)
-        pairs = spmm.buckets_to_tensors(spmm_pack.build_row_pairs_bucketed(
-            Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy(),
-            Q.tiles.cpu().numpy(), T=TP.meta.T), dtype, "cuda")
-        leftovers = [b for b in pairs if b[0].dim() == 1]
-        require(any(b[0].dim() == 2 for b in pairs) and leftovers,
-                "the paired pack made no two-row or no leftover bucket")
+        csr, stored_nnz = common.symmetric_csr(Q, kpad)
+        masked = (Q.pairs.run_col & 1).bool()
+        require(bool(masked.any()) and not bool(masked.all()),
+                "the paired pack has no masked or no unmasked run")
         for r_pad, live in ((8, 8), (16, 16), (8, 1)):
-            X = torch.zeros((r_pad, TP.meta.kpad), dtype=dtype,
-                            device="cuda")
-            X[:live] = torch.randn((live, TP.meta.kpad), generator=gen,
+            X = torch.zeros((r_pad, kpad), dtype=dtype, device="cuda")
+            X[:live] = torch.randn((live, kpad), generator=gen,
                                    dtype=dtype, device="cuda")
+            Xt = X.t().contiguous()
             cases = {
                 "spmm_sym": (
-                    lambda: spmm.spmm_sym(Q.tiles, Q.tile_rows, Q.tile_cols,
-                                          Q.out_ptr, Q.ent_tile, Q.ent_src,
-                                          X),
-                    lambda: spmm.spmm_sym_plain(Q.tiles, Q.tile_rows,
-                                                Q.tile_cols, X)),
+                    lambda: spmm.spmm_sym(Q.strips, X),
+                    lambda: spmm.spmm_strips_plain(Q.strips, X)),
                 "spmm_tile": (
                     lambda: spmm.spmm_symmetric(tr, tc, tl, X),
                     lambda: spmm.spmm_symmetric_plain(tr, tc, tl, X)),
                 "spmm_paired": (
-                    lambda: spmm.spmm_bucketed(pairs, X),
-                    lambda: spmm.spmm_bucketed_plain(pairs, X)),
-                "spmm_grouped_r1": (
-                    lambda: spmm.spmm_bucketed(leftovers, X),
-                    lambda: spmm.spmm_bucketed_plain(leftovers, X)),
+                    lambda: spmm.spmm_paired(Q.pairs, X),
+                    lambda: spmm.spmm_paired_plain(Q.pairs, X)),
             }
+            library = lambda: torch.sparse.mm(csr, Xt)  # noqa: E731
             dt = str(dtype).split(".")[-1]
+            dense = spmm.spmm_sym_plain(Q.tiles, Q.tile_rows, Q.tile_cols, X)
             errs = {}
-            for name, (kern, plain) in cases.items():
-                W, Wp = kern(), plain()
+            for name, (kern, plain) in [*cases.items(),
+                                        (LIBRARY, (lambda: library().t(),
+                                                   None))]:
+                W = kern()
+                Wp = plain() if plain else dense
                 torch.cuda.synchronize()
                 require(bool(torch.isfinite(W).all()),
                         f"{name} output not finite")
-                abs_err = float((W - Wp).abs().max())
-                scale = float(Wp.abs().max())
+                scale = float(dense.abs().max())
+                abs_err = max(float((W - Wp).abs().max()),
+                              float((W - dense).abs().max()))
                 require(abs_err <= TOL[dt] * scale,
                         f"{name} disagrees with plain ({dt}, r_pad {r_pad}, "
                         f"live {live}): {abs_err:.3e} > {TOL[dt]:.0e} * "
                         f"{scale:.3e}")
                 require(not W[live:].any(), f"{name}: zero rows not zero")
                 errs[name] = (abs_err, abs_err / scale)
-            ms = time_turns_ms([f for pair in cases.values() for f in pair])
+            ms = common.time_turns_ms(
+                [f for pair in cases.values() for f in pair] + [library])
+            bound, by = common.spmm_bound_ms(stored_nnz, csr.values().numel(),
+                                             r_pad, kpad, dtype, gbs)
             for i, name in enumerate(cases):
                 rows.append(dict(kernel=name, dtype=dt, r_pad=r_pad,
                                  live=live, max_abs_err=errs[name][0],
-                                 ms=ms[2 * i], plain_ms=ms[2 * i + 1]))
+                                 ms=ms[2 * i], plain_ms=ms[2 * i + 1],
+                                 library_ms=ms[-1], bound_ms=bound,
+                                 bound_by=by))
                 phase(f"[kernel] {name} {dt} r_pad={r_pad} live_rows={live} "
-                      f"tiles={Q.tiles.shape[0]} nt={TP.meta.nt} "
                       f"max_abs_err={errs[name][0]:.3e} (rel "
                       f"{errs[name][1]:.2e}) kernel_ms={ms[2 * i]:.4f} "
-                      f"plain_ms={ms[2 * i + 1]:.4f} spmm_sym_ms={ms[0]:.4f} "
-                      f"(per launch, {LAUNCHES} back to back, median of 3 "
-                      f"turns)")
+                      f"plain_ms={ms[2 * i + 1]:.4f} "
+                      f"library_ms={ms[-1]:.4f} (rel err "
+                      f"{errs[LIBRARY][1]:.2e}) bound_ms={bound:.4f} ({by}) "
+                      f"(per launch, {common.LAUNCHES} back to back, median "
+                      f"of 3 turns)")
     return rows
+
+
+def counting_products(tiled):
+    """Wrap tiled.apply_tiled (every tile product of the solve goes through
+    it) to count products; returns (count holder, restore)."""
+    real, n = tiled.apply_tiled, [0]
+
+    def counted(TP, X):
+        n[0] += 1
+        return real(TP, X)
+
+    tiled.apply_tiled = counted
+    return n, lambda: setattr(tiled, "apply_tiled", real)
 
 
 def slice_phase(torch, name, path, ref):
@@ -204,25 +264,29 @@ def slice_phase(torch, name, path, ref):
 def paired_phase(torch, path, ref):
     """The certified 10,648-pose solve under DCORA_SPMM_PACK=paired: every
     tile product of the f32 and f64 phases and of the tiled Lanczos runs on
-    the paired buckets."""
-    from dcora_tpu_torch.core import spmm
+    the compacted paired packs, one launch each."""
+    from dcora_tpu_torch.core import spmm, tiled
 
     old = os.environ.get("DCORA_SPMM_PACK")
     os.environ["DCORA_SPMM_PACK"] = "paired"
+    products, restore = counting_products(tiled)
     try:
         spmm.reset_launches()
         wall = slice_phase(torch, "grid10k paired pack", path, ref)
         counts = spmm.launch_counts()
     finally:
+        restore()
         if old is None:
             del os.environ["DCORA_SPMM_PACK"]
         else:
             os.environ["DCORA_SPMM_PACK"] = old
-    require(counts["spmm_paired"] > 0 and counts["spmm_grouped"] > 0,
-            f"the paired solve did not launch the grouped kernel: {counts}")
+    require(counts["spmm_paired"] == products[0] > 0,
+            f"the paired solve did not launch the grouped kernel once per "
+            f"tile product: {counts}, {products[0]} products")
     require(counts["spmm_sym"] == 0 and counts["spmm_symmetric"] == 0,
             f"the paired solve launched another SpMM kernel: {counts}")
-    phase(f"[launches] paired solve: {counts} (wall {wall:.2f}s)")
+    phase(f"[launches] paired solve: {counts}, {products[0]} tile products "
+          f"(wall {wall:.2f}s)")
     return counts
 
 
@@ -258,15 +322,9 @@ def main() -> int:
     t_start = time.perf_counter()
 
     from dcora_tpu_torch import datasets
-    from dcora_tpu_torch.core import spmm
+    from dcora_tpu_torch.core import spmm, tiled
 
-    t0 = time.perf_counter()
-    paths = spmm.build_all()
-    phase(f"[build] {len(paths)} libraries in {time.perf_counter() - t0:.2f}s"
-          " (one nvcc per source, in parallel): " + ", ".join(
-              f"{os.path.basename(p)} (nvcc "
-              f"{spmm.LIBRARIES[k].build_seconds or 0.0:.2f}s)"
-              for k, p in paths.items()))
+    build_phase(spmm)
 
     with open(REFERENCE) as fh:
         refs = json.load(fh)
@@ -284,15 +342,22 @@ def main() -> int:
 
         rows = kernel_phase(torch, paths["grid10k"])
 
-        os.environ.pop("DCORA_SPMM_PACK", None)  # the default CSR pack
-        spmm.reset_launches()
-        walls = {name: slice_phase(torch, name, paths[name], refs[name])
-                 for name in ("smallGrid3D", "grid10k")}
-        counts = spmm.launch_counts()
-        require(counts["spmm_sym"] > 0,
-                "the main path never launched the SpMM kernel")
-        phase(f"[launches] default pack: {counts} (10,648-pose grid wall "
-              f"{walls['grid10k']:.2f}s)")
+        os.environ.pop("DCORA_SPMM_PACK", None)  # the default strip pack
+        products, restore = counting_products(tiled)
+        try:
+            spmm.reset_launches()
+            walls = {name: slice_phase(torch, name, paths[name], refs[name])
+                     for name in ("smallGrid3D", "grid10k")}
+            counts = spmm.launch_counts()
+        finally:
+            restore()
+        require(counts["spmm_sym"] == products[0] > 0,
+                f"the main path did not launch the strip kernel once per "
+                f"tile product: {counts}, {products[0]} products")
+        require(counts["spmm_paired"] == 0 and counts["spmm_symmetric"] == 0,
+                f"the default solve launched another SpMM kernel: {counts}")
+        phase(f"[launches] default pack: {counts}, {products[0]} tile "
+              f"products (10,648-pose grid wall {walls['grid10k']:.2f}s)")
         paired = paired_phase(torch, paths["grid10k"], refs["grid10k"])
         benched = bench_phase(torch, paths["grid10k"])
 
@@ -311,7 +376,9 @@ def main() -> int:
                         and r["r_pad"] == 8 and r["live"] == 8)
         entries.append(dict(meta, launches=launches[name],
                             max_abs_err=max(r["max_abs_err"] for r in mine),
-                            ms=main_row["ms"], plain_ms=main_row["plain_ms"]))
+                            **{k: main_row[k] for k in (
+                                "ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}))
     elapsed = time.perf_counter() - t_start
     phase(f"[done] {elapsed:.1f}s after the device check")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -16,7 +16,8 @@ import torch
 
 from dcora_tpu_torch.core import problem as prob
 from dcora_tpu_torch.core.lifted import RAState
-from dcora_tpu_torch.core.spmm import build_output_csr, buckets_to_tensors
+from dcora_tpu_torch.core.spmm import build_output_csr, to_device
+from dcora_tpu_torch.core.spmm_pack import compact_buckets
 from dcora_tpu_torch.core.tiled import TiledMeta, TiledProblem, TiledQ
 
 
@@ -76,10 +77,12 @@ def tiled_problem(TPj, device="cpu", dtype=None) -> TiledProblem:
     The upper-triangular tile list comes from the bucketed groups
     (``Q.grp_buckets``) when the JAX build made them, and otherwise from the
     full tile list filtered to row <= col.  All-zero tiles (chunk padding,
-    pad slots) are dropped.  When the JAX build was paired
+    pad slots) are dropped.  The strip CSR of the port's kernel is built
+    from that list.  When the JAX build was paired
     (``DCORA_SPMM_PACK=paired``: some bucket has two rows per group), its
-    buckets are also carried across as ``Q.grp_buckets``, so both packages
-    apply the same layout.  ``dtype`` defaults to the JAX tiles' dtype."""
+    buckets are also carried across, compacted to their non-empty
+    sub-blocks, as ``Q.pairs``, so both packages apply the same packs.
+    ``dtype`` defaults to the JAX tiles' dtype."""
     m = TPj.meta
     meta = TiledMeta(d=m.d, n=m.n, l=m.l, b=m.b, T=m.T, nt=m.nt)
     T = meta.T
@@ -91,8 +94,8 @@ def tiled_problem(TPj, device="cpu", dtype=None) -> TiledProblem:
     if buckets is not None:
         by_key = _tiles_from_buckets(buckets, T)
         if any(_a(gr).ndim == 2 for gr, _, _ in buckets):
-            paired = buckets_to_tensors(
-                [tuple(_a(x) for x in b) for b in buckets], dtype, device)
+            paired = to_device(compact_buckets(
+                [tuple(_a(x) for x in b) for b in buckets]), dtype, device)
     else:
         rows, cols = _a(TPj.Q.tile_rows), _a(TPj.Q.tile_cols)
         by_key = {}
@@ -107,7 +110,6 @@ def tiled_problem(TPj, device="cpu", dtype=None) -> TiledProblem:
         np.zeros((1, T, T))
     if not keys:
         rows = cols = np.zeros(1, np.int64)
-    out_ptr, ent_tile, ent_src = build_output_csr(rows, cols, meta.nt)
 
     def dev(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
@@ -119,11 +121,11 @@ def tiled_problem(TPj, device="cpu", dtype=None) -> TiledProblem:
     Q = TiledQ(
         tiles=dev(tiles, dtype), tile_rows=dev(rows, torch.int64),
         tile_cols=dev(cols, torch.int64),
-        out_ptr=dev(out_ptr, torch.int32), ent_tile=dev(ent_tile, torch.int32),
-        ent_src=dev(ent_src, torch.int32),
+        strips=to_device(build_output_csr(rows, cols, tiles, meta.nt), dtype,
+                         device),
         ra_of_fl=dev(_a(TPj.Q.ra_of_fl), torch.int64),
         fl_of_ra=dev(_a(TPj.Q.fl_of_ra), torch.int64),
-        grp_buckets=paired,
+        pairs=paired,
     )
     # the JAX package stores the pose inverses planar, [dh, dh, n]
     return TiledProblem(

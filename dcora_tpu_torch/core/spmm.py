@@ -1,28 +1,34 @@
-"""Symmetric block-sparse SpMM  W = X Q  (the hand-written CUDA kernels).
+"""Symmetric sparse SpMM  W = X Q  (the hand-written CUDA kernels).
 
-Counterpart of ``dcora_tpu.core.pallas_spmm``.  Q is symmetric; only its
-upper-triangular T x T tiles are stored, and each stored tile is applied
-both ways (the diagonal tile once).  Three kernels, one per TPU kernel:
+Counterpart of ``dcora_tpu.core.pallas_spmm``.  Q is symmetric.  The TPU
+kernels multiply its upper-triangular 128 x 128 tiles on the matrix unit;
+on the pose graphs here ~98.6 % of a stored tile's entries are zero and the
+H100 kernels use no matrix unit, so two of the three read only the
+non-empty B x B sub-blocks (B = :data:`BLOCK`).  One kernel per TPU kernel:
 
   * :func:`spmm_sym` -- ``csrc/spmm_sym.cu``, replacing
     ``pallas_spmm.py:_grouped_kernel`` on the default path: owner-computes
-    over output tile-columns from a host CSR (:func:`build_output_csr`),
-    deterministic, each off-diagonal tile read twice.  It computes every tCG
-    Hessian product, cost and gradient of the flat RTR backend and every
-    tiled Lanczos matvec unless the paired packing is selected.
+    over output strips of B columns from a block CSR of both triangles
+    (:func:`build_output_csr`, :class:`StripCSR`), deterministic.  It
+    computes every tCG Hessian product, cost and gradient of the flat RTR
+    backend and every tiled Lanczos matvec unless the paired packing is
+    selected.
   * :func:`spmm_symmetric` -- ``csrc/spmm_tile.cu``, replacing
-    ``pallas_spmm.py:_spmm_kernel``: straight from the per-tile list, each
-    tile read once, accumulated with atomics.
-  * :func:`spmm_grouped` / :func:`spmm_paired` / :func:`spmm_bucketed` --
-    ``csrc/spmm_grouped.cu``, one kernel body over wide row-group buffers
-    with R rows per group: R = 2 replaces ``pallas_spmm.py:_paired_kernel``,
-    R = 1 is the wide-layout ``_grouped_kernel`` (the paired packing's
-    leftover buckets, the fixed-G and bucketed layouts).  Atomics as well.
+    ``pallas_spmm.py:_spmm_kernel``: straight from the per-tile list of
+    dense tiles, each tile read once, accumulated with atomics.
+  * :func:`spmm_paired` -- ``csrc/spmm_grouped.cu``, replacing
+    ``pallas_spmm.py:_paired_kernel`` and the wide-layout
+    ``_grouped_kernel``: the row-group packs of ``spmm_pack`` (one or two
+    RCM tile-rows per group, forward K-fused over the group's rows,
+    transposed masked on c == r_1) compacted to their non-empty sub-blocks
+    (``spmm_pack.compact_buckets``, :class:`PairBlocks`), every bucket in
+    one launch, atomics.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
-it runs its plain PyTorch version (index_select -> bmm -> index_add_).  What
-bounds each kernel on the H100, and what its design does about it, is
-written at the top of its source.
+it runs its plain PyTorch version of the same layout (index_select -> bmm
+-> index_add_).  :func:`spmm_sym_plain` over the dense tiles stays as the
+reference.  What bounds each kernel on the H100, and what its design does
+about it, is written at the top of its source.
 
 Each library is built at first use with ``nvcc`` from its source in the
 package into ``dcora_tpu_torch/build/`` and loaded with ctypes;
@@ -39,18 +45,23 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 T_TILE = 128
+# Edge of the sub-blocks that spmm_sym and spmm_paired read: one constant,
+# compiled into their kernels (-DDCORA_BLOCK).  4 is the 3D pose block
+# (d + 1) and gives the fewest bytes; tools/spmm_bench.py also times 8.
+BLOCK = 4
+BLOCKS = (4, 8)  # the edges the sub-block kernels compile for
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -63,27 +74,31 @@ def _nvcc() -> str:
 
 
 class _Library:
-    """One compiled kernel library (one ``.cu`` source), built and loaded on
-    first use.  The build's file name carries a hash of the source, the
-    headers it includes and the flags."""
+    """One compiled kernel library (one ``.cu`` source at one sub-block
+    edge), built and loaded on first use.  The build's file name carries a
+    hash of the source, the headers it includes and the flags;
+    ``build_log`` keeps what ``-Xptxas -v`` printed (registers, spills)."""
 
     def __init__(self, name: str, symbols: Dict[str, list],
-                 headers: Sequence[str] = ()):
+                 headers: Sequence[str], block: int):
         self.name = name
+        self.block = block
         self.source = os.path.join(CSRC, name + ".cu")
         self.headers = [os.path.join(CSRC, h) for h in headers]
+        self.flags = NVCC_FLAGS + [f"-DDCORA_BLOCK={block}"]
         self.symbols = symbols
         self._lib = None
         self._lock = threading.Lock()
         self.build_seconds = None
+        self.build_log = ""
 
     def path(self) -> str:
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(" ".join(self.flags).encode())
         for f in (self.source, *self.headers):
             with open(f, "rb") as fh:
                 h.update(fh.read())
-        return os.path.join(BUILD_DIR, f"lib{self.name}_{h.hexdigest()[:12]}"
-                                       ".so")
+        return os.path.join(BUILD_DIR, f"lib{self.name}_b{self.block}_"
+                                       f"{h.hexdigest()[:12]}.so")
 
     def start(self):
         """Start nvcc unless a build of this exact source exists; returns
@@ -93,7 +108,7 @@ class _Library:
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+        proc = subprocess.Popen([_nvcc(), *self.flags, "-o", tmp,
                                  self.source], stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         return proc, tmp, time.perf_counter()
@@ -109,6 +124,7 @@ class _Library:
                                f"({proc.returncode}):\n{stdout}\n{stderr}")
         os.replace(tmp, out)
         self.build_seconds = time.perf_counter() - t0
+        self.build_log = stdout + stderr
         return out
 
     def build(self) -> str:
@@ -127,34 +143,48 @@ class _Library:
             return self._lib
 
 
-LIBRARIES = {
-    "spmm_sym": _Library("spmm_sym", {
-        s: [_P] * 6 + [_I, _I, _P]
-        for s in ("dcora_spmm_sym_f32", "dcora_spmm_sym_f64")}),
-    "spmm_tile": _Library("spmm_tile", {
-        s: [_P] * 5 + [_I] * 3 + [_P]
-        for s in ("dcora_spmm_tile_f32", "dcora_spmm_tile_f64")},
-        headers=["tile_apply.cuh"]),
-    "spmm_grouped": _Library("spmm_grouped", {
-        s: [_P] * 5 + [_I] * 6 + [_P]
-        for s in ("dcora_spmm_grouped_f32", "dcora_spmm_grouped_f64")},
-        headers=["tile_apply.cuh"]),
+# name -> (C symbols with their argument types, headers it includes)
+_SOURCES = {
+    "spmm_sym": ({s: [_P] * 5 + [_I, _I, _P]
+                  for s in ("dcora_spmm_sym_f32", "dcora_spmm_sym_f64")},
+                 ["blocks.cuh"]),
+    "spmm_tile": ({s: [_P] * 5 + [_I] * 3 + [_P]
+                   for s in ("dcora_spmm_tile_f32", "dcora_spmm_tile_f64")},
+                  ["tile_apply.cuh"]),
+    "spmm_grouped": ({s: [_P] * 6 + [_I] * 3 + [_P]
+                      for s in ("dcora_spmm_grouped_f32",
+                                "dcora_spmm_grouped_f64")},
+                     ["blocks.cuh"]),
 }
+_LIBRARIES: Dict[tuple, _Library] = {}
+_LIBRARIES_LOCK = threading.Lock()
 
 
-def build_all() -> Dict[str, str]:
+def library(name: str, block: int = BLOCK) -> _Library:
+    """The library of csrc/<name>.cu at sub-block edge `block`."""
+    with _LIBRARIES_LOCK:
+        key = (name, block)
+        if key not in _LIBRARIES:
+            symbols, headers = _SOURCES[name]
+            _LIBRARIES[key] = _Library(name, symbols, headers, block)
+        return _LIBRARIES[key]
+
+
+def build_all(block: int = BLOCK) -> Dict[str, _Library]:
     """Build every kernel library, one nvcc per source, all started
-    together; then load each.  Returns {name: library path}."""
-    started = {name: lib.start() for name, lib in LIBRARIES.items()}
-    paths = {name: LIBRARIES[name].finish(s) for name, s in started.items()}
-    for lib in LIBRARIES.values():
+    together; then load each.  Returns {name: library}."""
+    libs = {name: library(name, block) for name in _SOURCES}
+    started = {name: lib.start() for name, lib in libs.items()}
+    for name, s in started.items():
+        libs[name].finish(s)
+    for lib in libs.values():
         lib.get()
-    return paths
+    return libs
 
 
-def _entry(lib: str, X: torch.Tensor):
+def _entry(lib: str, X: torch.Tensor, block: int = BLOCK):
     suffix = "f32" if X.dtype == torch.float32 else "f64"
-    return getattr(LIBRARIES[lib].get(), f"dcora_{lib}_{suffix}")
+    return getattr(library(lib, block).get(), f"dcora_{lib}_{suffix}")
 
 
 def _stream(X: torch.Tensor) -> int:
@@ -166,37 +196,48 @@ def _stream(X: torch.Tensor) -> int:
 # --------------------------------------------------------------------------
 
 
-def _check_x(name: str, X: torch.Tensor, tiles: torch.Tensor, T: int):
+def _check_x(name: str, X: torch.Tensor, data: torch.Tensor, T: int):
+    """X is [r_pad, kpad] with kpad a multiple of T, sharing data's float
+    dtype and device, on the CPU or a CUDA device."""
     if X.dim() != 2:
         raise ValueError(f"{name}: X must be 2-D, got {tuple(X.shape)}")
     if X.dtype not in (torch.float32, torch.float64) or \
-            tiles.dtype != X.dtype:
-        raise TypeError(f"{name}: X {X.dtype} and tiles {tiles.dtype} "
+            data.dtype != X.dtype:
+        raise TypeError(f"{name}: X {X.dtype} and Q's values {data.dtype} "
                         "must share float32 or float64")
     r_pad, kpad = X.shape
     if r_pad < 1 or T < 1 or kpad % T or kpad == 0:
         raise ValueError(f"{name}: bad X shape {tuple(X.shape)} for "
-                         f"{T}x{T} tiles")
-    if tiles.device != X.device:
-        raise ValueError(f"{name}: tiles and X on different devices")
+                         f"{T}x{T} blocks")
+    if data.device != X.device:
+        raise ValueError(f"{name}: Q and X on different devices")
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {X.device}")
 
 
-def _check_kernel(name: str, T: int, X: torch.Tensor, data: torch.Tensor,
-                  **index):
-    """What a kernel launch needs beyond _check_x: T = 128, contiguous
-    operands and contiguous int32 indices on X's device."""
-    if T != T_TILE:
-        raise ValueError(f"{name}: the kernel takes {T_TILE}x{T_TILE} "
-                         f"tiles, got {T}x{T}")
+def _check_kernel(name: str, X: torch.Tensor, data: torch.Tensor, **index):
+    """What a kernel launch needs beyond _check_x: contiguous operands and
+    contiguous int32 indices on X's device."""
     for iname, a in index.items():
         if a.dtype != torch.int32 or a.device != X.device or \
                 not a.is_contiguous():
             raise ValueError(f"{name}: {iname} must be a contiguous int32 "
                              f"tensor on {X.device}")
     if not (X.is_contiguous() and data.is_contiguous()):
-        raise ValueError(f"{name}: X and its tiles must be contiguous")
+        raise ValueError(f"{name}: X and Q's values must be contiguous")
+
+
+def _block_edge(name: str, vals: torch.Tensor, kernel: bool) -> int:
+    """The sub-block edge B of vals [ne, B, B]; a launch needs B in
+    BLOCKS."""
+    if vals.dim() != 3 or vals.shape[1] != vals.shape[2]:
+        raise ValueError(f"{name}: vals must be [ne, B, B], got "
+                         f"{tuple(vals.shape)}")
+    B = vals.shape[-1]
+    if kernel and B not in BLOCKS:
+        raise ValueError(f"{name}: the kernel takes {BLOCKS} sub-blocks, "
+                         f"got {B}x{B}")
+    return B
 
 
 def _launch(name: str, err: int):
@@ -204,42 +245,98 @@ def _launch(name: str, err: int):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def to_device(blocks, dtype: torch.dtype, device):
+    """A StripCSR / PairBlocks of numpy arrays -> the same NamedTuple of
+    contiguous tensors on `device`: int32 indices, values at `dtype`."""
+    def dev(a):
+        a = np.ascontiguousarray(a)
+        dt = dtype if a.dtype.kind == "f" else torch.int32
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    return type(blocks)(*(dev(a) for a in blocks))
+
+
+def nonempty_blocks(a: np.ndarray, B: int) -> np.ndarray:
+    """Mask [n, H/B, W/B] of the B x B blocks of a [n, H, W] that hold a
+    non-zero.  For B up to 8 it reads each B-wide bool row as one integer,
+    so the pass costs about one comparison over `a`."""
+    n, H, W = a.shape
+    nz = np.ascontiguousarray(a != 0)
+    if B in (1, 2, 4, 8):
+        return (nz.view(f"u{B}").reshape(n, H // B, B, W // B) != 0).any(
+            axis=2)
+    return nz.reshape(n, H // B, B, W // B, B).any(axis=(2, 4))
+
+
+def _strips_of(X: torch.Tensor, B: int) -> torch.Tensor:
+    """[r_pad, kpad] -> [kpad / B, r_pad, B] (strip-major view)."""
+    r_pad, kpad = X.shape
+    return X.reshape(r_pad, kpad // B, B).transpose(0, 1)
+
+
+def _from_strips(Ws: torch.Tensor) -> torch.Tensor:
+    nstrip, r_pad, B = Ws.shape
+    return Ws.transpose(0, 1).reshape(r_pad, nstrip * B)
+
+
 # --------------------------------------------------------------------------
-# Kernel 1: owner-computes from the output CSR (csrc/spmm_sym.cu)
+# Kernel 1: owner-computes over output strips (csrc/spmm_sym.cu)
 # --------------------------------------------------------------------------
 
 
-def build_output_csr(rows: np.ndarray, cols: np.ndarray,
-                     nt: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Per-output-column entry lists of the upper-triangular tile list.
+class StripCSR(NamedTuple):
+    """Q as a block CSR over output strips of B scalar columns, both
+    triangles: strip s's entries ptr[s]:ptr[s+1] are the non-empty blocks
+    of Q that feed it, vals[e][q][k] = Q[src[e]B + k, sB + q] (the block
+    transposed, so that a row of vals is one output column), in ascending
+    src order (the kernel's summation order)."""
 
-    Output column o sums X[:, src] A over the stored tiles (src, o) with
-    src <= o, and X[:, src] A^T over the stored tiles (o, src) with src > o.
-    Returns (out_ptr i32[nt+1], ent_tile i32[ne], ent_src i32[ne]), each
-    column's entries in ascending src order (the kernel's summation order).
+    ptr: torch.Tensor    # i32[kpad / B + 1]
+    src: torch.Tensor    # i32[ne]
+    vals: torch.Tensor   # [ne, B, B]
+
+
+def build_output_csr(rows, cols, tiles, nt: int,
+                     B: int = BLOCK) -> StripCSR:
+    """The StripCSR (numpy arrays, values at the tiles' dtype) of the
+    upper-triangular tile list (rows <= cols) of nt tile-columns.
+
+    A stored tile A at (r, c) holds Q's blocks (r, c); each of its non-empty
+    B x B sub-blocks A_ab feeds output strip cT/B + b from source strip
+    rT/B + a as A_ab^T and, off the diagonal, output strip rT/B + a from
+    source strip cT/B + b as A_ab.
     """
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
+    tiles = np.asarray(tiles)
     if np.any(rows > cols):
         raise ValueError("tile list must be upper-triangular (row <= col)")
-    idx = np.arange(len(rows), dtype=np.int64)
-    off = rows != cols
-    ent_out = np.concatenate([cols, rows[off]])
-    ent_tile = np.concatenate([idx, idx[off]])
-    ent_src = np.concatenate([rows, cols[off]])
-    order = np.lexsort((ent_src, ent_out))
-    ent_out, ent_tile, ent_src = ent_out[order], ent_tile[order], \
-        ent_src[order]
-    out_ptr = np.zeros(nt + 1, np.int64)
-    np.cumsum(np.bincount(ent_out, minlength=nt), out=out_ptr[1:])
-    return (out_ptr.astype(np.int32), ent_tile.astype(np.int32),
-            ent_src.astype(np.int32))
+    m, T = tiles.shape[0], tiles.shape[-1]
+    if T % B:
+        raise ValueError(f"{T}x{T} tiles do not split into {B}x{B} blocks")
+    TB = T // B
+    t5 = tiles.reshape(m, TB, B, TB, B)
+    t, a, b = np.nonzero(nonempty_blocks(tiles, B))
+    blk = t5[t, a, :, b, :]                               # [n, B, B]
+    src_f = rows[t] * TB + a
+    out_f = cols[t] * TB + b
+    off = rows[t] != cols[t]
+    out = np.concatenate([out_f, src_f[off]])
+    src = np.concatenate([src_f, out_f[off]])
+    vals = np.concatenate([blk.transpose(0, 2, 1), blk[off]])
+    order = np.lexsort((src, out))
+    nstrip = nt * TB
+    ptr = np.zeros(nstrip + 1, np.int64)
+    np.cumsum(np.bincount(out, minlength=nstrip), out=ptr[1:])
+    return StripCSR(ptr.astype(np.int32), src[order].astype(np.int32),
+                    np.ascontiguousarray(vals[order]))
 
 
 def spmm_sym_plain(tiles: torch.Tensor, rows: torch.Tensor,
                    cols: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch W = X Q: index_select -> bmm -> index_add_ over the
-    upper-triangular tile list, both directions, diagonal masked."""
+    """Plain PyTorch W = X Q over the dense upper-triangular tile list:
+    index_select -> bmm -> index_add_, both directions, diagonal masked.
+    The reference of every layout."""
     r_pad, kpad = X.shape
     T = tiles.shape[-1]
     nt = kpad // T
@@ -253,41 +350,49 @@ def spmm_sym_plain(tiles: torch.Tensor, rows: torch.Tensor,
     return W.transpose(0, 1).reshape(r_pad, kpad)
 
 
-def spmm_sym(tiles: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
-             out_ptr: torch.Tensor, ent_tile: torch.Tensor,
-             ent_src: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """W = X Q from the upper-triangular tile list.
+def spmm_strips_plain(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of spmm_sym on the StripCSR: index_select the
+    source strips -> bmm with the blocks -> index_add_ into the output
+    strips."""
+    ptr, src, vals = strips
+    B = vals.shape[-1]
+    Xs = _strips_of(X, B)
+    out = torch.repeat_interleave(
+        torch.arange(ptr.shape[0] - 1, device=X.device),
+        (ptr[1:] - ptr[:-1]).long())
+    Ws = torch.zeros_like(Xs)
+    Ws.index_add_(0, out, torch.bmm(Xs.index_select(0, src.long()),
+                                    vals.transpose(1, 2)))
+    return _from_strips(Ws)
 
-    tiles [m, T, T] and X [r_pad, nt*T] share a float dtype (f32 or f64),
-    any r_pad >= 1; the kernel takes T = 128, the plain path any T.
-    rows/cols index the tiles (plain path); out_ptr/ent_tile/ent_src are
-    the int32 CSR of build_output_csr (kernel).
-    A CUDA X launches the kernel or raises; a CPU X runs spmm_sym_plain.
+
+def spmm_sym(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
+    """W = X Q from the StripCSR of Q (build_output_csr).
+
+    vals [ne, B, B] and X [r_pad, kpad] share f32 or f64, any r_pad >= 1;
+    ptr has kpad / B + 1 entries.  A CUDA X launches csrc/spmm_sym.cu
+    (contiguous int32 ptr/src, B in BLOCKS) or raises; a CPU X runs
+    spmm_strips_plain.
     """
-    if X.dim() != 2 or tiles.dim() != 3:
-        raise ValueError(f"spmm_sym: X must be 2-D and tiles 3-D, got "
-                         f"{tuple(X.shape)} and {tuple(tiles.shape)}")
-    T = tiles.shape[-1]
-    if tiles.shape[1] != T:
-        raise ValueError(f"spmm_sym: tiles must be square, got "
-                         f"{tuple(tiles.shape)}")
-    _check_x("spmm_sym", X, tiles, T)
-    if X.device.type == "cpu":
-        return spmm_sym_plain(tiles, rows, cols, X)
-    _check_kernel("spmm_sym", T, X, tiles, out_ptr=out_ptr,
-                  ent_tile=ent_tile, ent_src=ent_src)
+    ptr, src, vals = strips
+    B = _block_edge("spmm_sym", vals, X.device.type == "cuda")
+    _check_x("spmm_sym", X, vals, B)
     r_pad, kpad = X.shape
-    nt = kpad // T
-    if out_ptr.dim() != 1 or out_ptr.shape[0] != nt + 1:
-        raise ValueError(f"spmm_sym: out_ptr has shape "
-                         f"{tuple(out_ptr.shape)}, expected ({nt + 1},)")
-    fn = _entry("spmm_sym", X)
+    nstrip = kpad // B
+    if ptr.dim() != 1 or ptr.shape[0] != nstrip + 1 or \
+            src.shape != (vals.shape[0],):
+        raise ValueError(f"spmm_sym: ptr {tuple(ptr.shape)} and src "
+                         f"{tuple(src.shape)} do not index {nstrip} strips "
+                         f"and {vals.shape[0]} blocks")
+    if X.device.type == "cpu":
+        return spmm_strips_plain(strips, X)
+    _check_kernel("spmm_sym", X, vals, ptr=ptr, src=src)
+    fn = _entry("spmm_sym", X, B)
     W = torch.empty_like(X)
     with torch.cuda.device(X.device):
-        _launch("spmm_sym", fn(
-            tiles.data_ptr(), out_ptr.data_ptr(), ent_tile.data_ptr(),
-            ent_src.data_ptr(), X.data_ptr(), W.data_ptr(), nt, r_pad,
-            _stream(X)))
+        _launch("spmm_sym", fn(ptr.data_ptr(), src.data_ptr(),
+                               vals.data_ptr(), X.data_ptr(), W.data_ptr(),
+                               nstrip, r_pad, _stream(X)))
     spmm_sym.launches += 1
     return W
 
@@ -328,7 +433,10 @@ def spmm_symmetric(rows: torch.Tensor, cols: torch.Tensor,
                          f"cols {tuple(cols.shape)} must be ({m},)")
     if X.device.type == "cpu":
         return spmm_symmetric_plain(rows, cols, tiles, X)
-    _check_kernel("spmm_symmetric", T, X, tiles, rows=rows, cols=cols)
+    if T != T_TILE:
+        raise ValueError(f"spmm_symmetric: the kernel takes "
+                         f"{T_TILE}x{T_TILE} tiles, got {T}x{T}")
+    _check_kernel("spmm_symmetric", X, tiles, rows=rows, cols=cols)
     r_pad, kpad = X.shape
     fn = _entry("spmm_tile", X)
     W = torch.empty_like(X)
@@ -344,167 +452,93 @@ spmm_symmetric.launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernel 3: wide row-group buffers, R rows per group (csrc/spmm_grouped.cu)
+# Kernel 3: the row-group packs' non-empty sub-blocks (csrc/spmm_grouped.cu)
 # --------------------------------------------------------------------------
 
 
-def _group_shape(grows, gcols, wide) -> Tuple[int, int, int, int]:
-    """(ng, R, G, T) of one bucket, checked for consistency."""
-    if gcols.dim() != 2 or wide.dim() != 3:
-        raise ValueError(f"grouped SpMM: gcols must be [ng, G] and wide "
-                         f"[ng, R*T, G*T], got {tuple(gcols.shape)} and "
-                         f"{tuple(wide.shape)}")
-    ng, G = gcols.shape
-    T = wide.shape[2] // G if G else 0
-    R = wide.shape[1] // T if T else 0
-    if not (G and T and R in (1, 2) and wide.shape == (ng, R * T, G * T)
-            and grows.numel() == ng * R):
-        raise ValueError(f"grouped SpMM: inconsistent bucket: grows "
-                         f"{tuple(grows.shape)}, gcols {tuple(gcols.shape)}, "
-                         f"wide {tuple(wide.shape)}")
-    return ng, R, G, T
+class PairBlocks(NamedTuple):
+    """Row-group packs (spmm_pack.build_row_pairs_bucketed and the other
+    packers) compacted to their non-empty B x B sub-blocks by
+    spmm_pack.compact_buckets.
+
+    A run r is one slot's sub-column: the B output columns starting at
+    ``run_col[r] & ~1``; bit 0 of run_col is set when the slot is masked
+    (its column is the group's first row) and its transposed products are
+    skipped.  The run's entries run_ptr[r]:run_ptr[r+1] are the sub-blocks
+    of either row of the group that feed it: entry e sits at the scalar
+    column ent_col[e] of its sub-row, with vals[e][kk][jj] =
+    A[aB + kk, bB + jj] of its sub-tile A."""
+
+    run_ptr: torch.Tensor   # i32[nrun + 1]
+    run_col: torch.Tensor   # i32[nrun]
+    ent_col: torch.Tensor   # i32[ne]
+    vals: torch.Tensor      # [ne, B, B]
 
 
-def spmm_grouped_plain(grows: torch.Tensor, gcols: torch.Tensor,
-                       wide: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch W = X Q from one bucket of wide row groups with R = 1
-    (grows [ng]) or R = 2 (grows [ng, 2]) rows per group: bmm over the wide
-    buffers, then index_add_.  The transposed pass skips slots whose
-    column is the group's first row."""
-    ng, R, G, T = _group_shape(grows, gcols, wide)
-    r_pad, kpad = X.shape
-    nt = kpad // T
-    grows = grows.reshape(ng, R).long()
-    gcols = gcols.long()
-    Xt = X.reshape(r_pad, nt, T).transpose(0, 1)           # [nt, r, T]
-
-    def gather(idx, k):  # [ng, k] tile indices -> [ng, r, k*T]
-        return Xt.index_select(0, idx.reshape(-1)).reshape(
-            ng, k, r_pad, T).transpose(1, 2).reshape(ng, r_pad, k * T)
-
-    def scatter(W, idx, Y, k):  # Y [ng, r, k*T] into W[idx] tiles
-        W.index_add_(0, idx.reshape(-1), Y.reshape(
-            ng, r_pad, k, T).transpose(1, 2).reshape(ng * k, r_pad, T))
-
-    W = torch.zeros((nt, r_pad, T), dtype=X.dtype, device=X.device)
-    scatter(W, gcols, torch.bmm(gather(grows, R), wide), G)
-    keep = (gcols != grows[:, :1])[:, None, :, None]       # [ng, 1, G, 1]
-    Xc = torch.where(keep, gather(gcols, G).reshape(ng, r_pad, G, T),
-                     torch.zeros((), dtype=X.dtype, device=X.device))
-    scatter(W, grows, torch.bmm(Xc.reshape(ng, r_pad, G * T),
-                                wide.transpose(1, 2)), R)
-    return W.transpose(0, 1).reshape(r_pad, kpad)
+def spmm_paired_plain(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of spmm_paired: per entry, index_select the
+    sub-row's and the run's strips of X -> bmm with the block (forward) and
+    its transpose (unless masked) -> index_add_ into the run's and the
+    sub-row's strips of W."""
+    run_ptr, run_col, ent_col, vals = blocks
+    B = vals.shape[-1]
+    Xs = _strips_of(X, B)
+    run = torch.repeat_interleave(
+        torch.arange(run_col.shape[0], device=X.device),
+        (run_ptr[1:] - run_ptr[:-1]).long())
+    rc = run_col.long()[run]
+    cs = (rc >> 1 << 1) // B          # the run's output strip
+    es = ent_col.long() // B          # the entry's sub-row strip
+    Ws = torch.zeros_like(Xs)
+    Ws.index_add_(0, cs, torch.bmm(Xs.index_select(0, es), vals))
+    keep = (rc & 1) == 0
+    Ws.index_add_(0, es[keep], torch.bmm(Xs.index_select(0, cs[keep]),
+                                         vals[keep].transpose(1, 2)))
+    return _from_strips(Ws)
 
 
-# the same sum: R comes from the wide buffer's shape
-spmm_paired_plain = spmm_grouped_plain
+def spmm_paired(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
+    """W = X Q from the compacted row-group packs (PairBlocks), every
+    bucket in one launch.
 
-
-def _grouped_launch(name: str, grows, gcols, wide, X, W, zero: bool):
-    """Launch csrc/spmm_grouped.cu for one bucket into W (zeroed first when
-    `zero`); counts the launch on spmm_grouped (R = 1) or spmm_paired."""
-    ng, R, G, T = _group_shape(grows, gcols, wide)
-    _check_x(name, X, wide, T)
-    if X.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel needs a CUDA tensor")
-    _check_kernel(name, T, X, wide, grows=grows, gcols=gcols)
-    r_pad, kpad = X.shape
-    fn = _entry("spmm_grouped", X)
-    with torch.cuda.device(X.device):
-        _launch(name, fn(grows.data_ptr(), gcols.data_ptr(), wide.data_ptr(),
-                         X.data_ptr(), W.data_ptr(), ng, R, G, kpad // T,
-                         r_pad, int(zero), _stream(X)))
-    if R == 2:
-        spmm_paired.launches += 1
-    else:
-        spmm_grouped.launches += 1
-
-
-def _one_bucket(name: str, R: int, grows, gcols, wide, X):
-    ng, R_have, G, T = _group_shape(grows, gcols, wide)
-    if R_have != R or grows.dim() != R:
-        raise ValueError(f"{name}: expected a {R}-row bucket, got grows "
-                         f"{tuple(grows.shape)} and wide "
-                         f"{tuple(wide.shape)}")
-    _check_x(name, X, wide, T)
+    vals [ne, B, B] and X [r_pad, kpad] share f32 or f64, any r_pad >= 1.
+    A CUDA X launches csrc/spmm_grouped.cu (contiguous int32 indices, B in
+    BLOCKS) or raises; a CPU X runs spmm_paired_plain.
+    """
+    run_ptr, run_col, ent_col, vals = blocks
+    B = _block_edge("spmm_paired", vals, X.device.type == "cuda")
+    _check_x("spmm_paired", X, vals, B)
+    nrun = run_col.shape[0]
+    if run_ptr.shape != (nrun + 1,) or ent_col.shape != (vals.shape[0],):
+        raise ValueError(f"spmm_paired: run_ptr {tuple(run_ptr.shape)} and "
+                         f"ent_col {tuple(ent_col.shape)} do not index "
+                         f"{nrun} runs and {vals.shape[0]} blocks")
     if X.device.type == "cpu":
-        return spmm_grouped_plain(grows, gcols, wide, X)
+        return spmm_paired_plain(blocks, X)
+    _check_kernel("spmm_paired", X, vals, run_ptr=run_ptr, run_col=run_col,
+                  ent_col=ent_col)
+    r_pad, kpad = X.shape
+    fn = _entry("spmm_grouped", X, B)
     W = torch.empty_like(X)
-    _grouped_launch(name, grows, gcols, wide, X, W, zero=True)
+    with torch.cuda.device(X.device):
+        _launch("spmm_paired", fn(
+            run_ptr.data_ptr(), run_col.data_ptr(), ent_col.data_ptr(),
+            vals.data_ptr(), X.data_ptr(), W.data_ptr(), nrun, kpad, r_pad,
+            _stream(X)))
+    spmm_paired.launches += 1
     return W
 
 
-def spmm_grouped(grows: torch.Tensor, gcols: torch.Tensor,
-                 wide: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """W = X Q from single-row wide groups: grows i32[ng], gcols
-    i32[ng, G], wide [ng, T, G*T] (spmm_pack.build_row_groups /
-    build_row_groups_bucketed).  A CUDA X launches csrc/spmm_grouped.cu
-    with R = 1 or raises; a CPU X runs spmm_grouped_plain."""
-    return _one_bucket("spmm_grouped", 1, grows, gcols, wide, X)
-
-
-def spmm_paired(grows: torch.Tensor, gcols: torch.Tensor,
-                wide: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """W = X Q from two-row K-fused groups: grows i32[ng, 2], gcols
-    i32[ng, G], wide [ng, 2T, G*T] (spmm_pack.build_row_pairs_bucketed).
-    A CUDA X launches csrc/spmm_grouped.cu with R = 2 or raises; a CPU X
-    runs spmm_paired_plain."""
-    return _one_bucket("spmm_paired", 2, grows, gcols, wide, X)
-
-
-spmm_grouped.launches = 0
 spmm_paired.launches = 0
 
-
-def spmm_bucketed_plain(buckets, X: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of spmm_bucketed."""
-    W = None
-    for grows, gcols, wide in buckets:
-        Y = spmm_grouped_plain(grows, gcols, wide, X)
-        W = Y if W is None else W + Y
-    return W
-
-
-def spmm_bucketed(buckets, X: torch.Tensor) -> torch.Tensor:
-    """W = X Q summed over buckets of wide groups (as built by
-    spmm_pack.build_row_groups_bucketed / build_row_pairs_bucketed).  A
-    bucket whose wide buffer has 2T contraction rows is a two-row K-fused
-    bucket (R = 2), any other a single-row one (R = 1), as
-    pallas_spmm.spmm_bucketed dispatches.  On a CUDA X every bucket
-    launches csrc/spmm_grouped.cu into one W (the first launch zeroes it);
-    on a CPU X the plain versions run."""
-    buckets = list(buckets)
-    if not buckets:
-        raise ValueError("spmm_bucketed: no buckets")
-    for grows, gcols, wide in buckets:
-        _check_x("spmm_bucketed", X, wide, _group_shape(grows, gcols,
-                                                        wide)[3])
-    if X.device.type == "cpu":
-        return spmm_bucketed_plain(buckets, X)
-    W = torch.empty_like(X)
-    for i, (grows, gcols, wide) in enumerate(buckets):
-        _grouped_launch("spmm_bucketed", grows, gcols, wide, X, W,
-                        zero=(i == 0))
-    return W
-
-
-def buckets_to_tensors(buckets, dtype: torch.dtype, device) -> tuple:
-    """numpy (grows, gcols, wide) buckets -> contiguous tensors on `device`:
-    int32 indices and wide buffers at `dtype`."""
-    def dev(a, dt):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                               device=device)
-
-    return tuple((dev(gr, torch.int32), dev(gc, torch.int32),
-                  dev(gw, dtype)) for gr, gc, gw in buckets)
+_COUNTED = (spmm_sym, spmm_symmetric, spmm_paired)
 
 
 def reset_launches():
     """Set every kernel's launch count to 0."""
-    for fn in (spmm_sym, spmm_symmetric, spmm_grouped, spmm_paired):
+    for fn in _COUNTED:
         fn.launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches
-            for fn in (spmm_sym, spmm_symmetric, spmm_grouped, spmm_paired)}
+    return {fn.__name__: fn.launches for fn in _COUNTED}

@@ -3,8 +3,7 @@
 Counterpart of the numpy packers of ``dcora_tpu.core.pallas_spmm``
 (``build_row_groups``, ``_row_partition_widths``, ``choose_bucket_widths``,
 ``build_row_groups_bucketed``, ``build_row_pairs_bucketed``), copied nearly
-verbatim.  Their output feeds the grouped kernel of ``csrc/spmm_grouped.cu``
-through :func:`dcora_tpu_torch.core.spmm.spmm_bucketed`:
+verbatim:
 
   * single-row groups ``(grows i[ng], gcols i[ng, G], wide [ng, T, G*T])``:
     the tiles of one tile-row side by side, pad slots at column ``row`` with
@@ -12,6 +11,13 @@ through :func:`dcora_tpu_torch.core.spmm.spmm_bucketed`:
   * two-row K-fused groups ``(grows i[ng, 2], gcols i[ng, w],
     wide [ng, 2T, w*T])``: two consecutive RCM tile-rows stacked along the
     contraction axis over the union of their columns.
+
+The wide buffers are the TPU kernels' layout.  :func:`compact_buckets`
+turns any list of them into what the H100 grouped kernel
+(``csrc/spmm_grouped.cu`` through
+:func:`dcora_tpu_torch.core.spmm.spmm_paired`) reads: the non-empty B x B
+sub-blocks of every slot, grouped by output sub-column, every bucket in one
+table.
 
 One deliberate difference: the JAX packers cast the wide buffers to float32;
 these keep the dtype of the tiles they are given, so the f64-tile phase and
@@ -24,6 +30,8 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+
+from dcora_tpu_torch.core.spmm import BLOCK, PairBlocks, nonempty_blocks
 
 GROUP = 8  # tiles per row-group of the fixed-width layout
 
@@ -189,7 +197,8 @@ def build_row_pairs_bucketed(rows, cols, tiles, T: int = 128,
       * pad slots use column r1 with all-zero subtiles.
 
     Returns a list of (grows i32[ng, 2], gcols i32[ng, w], wide [ng, 2T, w*T])
-    plus single-row buckets for the leftovers, consumable by spmm_bucketed.
+    plus single-row buckets for the leftovers (compact_buckets turns them
+    into the grouped kernel's PairBlocks).
     """
     rows = np.asarray(rows)
     cols = np.asarray(cols)
@@ -270,3 +279,54 @@ def build_row_pairs_bucketed(rows, cols, tiles, T: int = 128,
         out = [(np.zeros(1, np.int32), np.zeros((1, 1), np.int32),
                 np.zeros((1, T, T), dt))]
     return out
+
+
+def compact_buckets(buckets, B: int = BLOCK) -> PairBlocks:
+    """The non-empty B x B sub-blocks of a list of wide buckets (single-row
+    or two-row groups, as the packers above make them), as one PairBlocks
+    table of numpy arrays at the buckets' dtype.
+
+    Slot (g, j) of a bucket, with rows r_h = grows[g, h] and column
+    c = gcols[g, j], splits its sub-tile A_hj into sub-blocks (a, b); the
+    non-empty ones of both rows with the same b form one run (output
+    columns cT + bB .. + B, the forward product K-fused over h), ordered by
+    (h, a) inside it.  A run is masked (bit 0 of run_col) when c == r_1:
+    the r_1 diagonal tile or a pad slot.  Runs are in bucket, slot and b
+    order.
+    """
+    slots, keys, cols, ecols, vals = [], [], [], [], []
+    nslot = 0
+    for grows, gcols, wide in buckets:
+        grows, gcols, wide = (np.asarray(a) for a in (grows, gcols, wide))
+        ng, G = gcols.shape
+        T = wide.shape[2] // G
+        R = wide.shape[1] // T
+        if T % B or wide.shape != (ng, R * T, G * T):
+            raise ValueError(f"compact_buckets: wide {wide.shape} is not "
+                             f"[ng, R*T, G*T] with T a multiple of {B}")
+        TB = T // B
+        gr = grows.reshape(ng, R).astype(np.int64)
+        w7 = wide.reshape(ng, R, TB, B, G, TB, B)
+        g, h, a, j, b = np.nonzero(nonempty_blocks(wide, B).reshape(
+            ng, R, TB, G, TB))
+        c = gcols[g, j].astype(np.int64)
+        slots.append(nslot + g.astype(np.int64) * G + j)
+        keys.append(b * (2 * TB) + h * TB + a)   # (b, h, a) inside a slot
+        cols.append((c * T + b * B) | (c == gr[g, 0]))
+        ecols.append(gr[g, h] * T + a * B)
+        vals.append(w7[g, h, a, :, j, b, :])
+        nslot += ng * G
+    if not slots:
+        raise ValueError("compact_buckets: no buckets")
+    slot, key = np.concatenate(slots), np.concatenate(keys)
+    order = np.lexsort((key, slot))
+    slot, key = slot[order], key[order]
+    col = np.concatenate(cols)[order]
+    # a run starts where the slot or the sub-column changes
+    start = np.ones(len(slot), bool)
+    start[1:] = (slot[1:] != slot[:-1]) | (col[1:] != col[:-1])
+    run_ptr = np.append(np.flatnonzero(start), len(slot))
+    return PairBlocks(run_ptr.astype(np.int32),
+                      col[start].astype(np.int32),
+                      np.concatenate(ecols)[order].astype(np.int32),
+                      np.ascontiguousarray(np.concatenate(vals)[order]))

@@ -2,13 +2,15 @@
 
 Counterpart of ``dcora_tpu.core.tiled``.  Reordering the pose graph with
 reverse Cuthill-McKee collapses the scalar matrix Q into a narrow band, so
-Q partitions into a few hundred dense 128x128 tiles and the SpMM W = X Q
-becomes a block-sparse product at hardware-friendly granularity.  Q is
-symmetric, so only its upper-triangular tiles are stored, and the product
-runs through a hand-written kernel of :mod:`dcora_tpu_torch.core.spmm`:
-the owner-computes CSR kernel by default, or the two-row K-fused grouped
-kernel when the build packs the tiles in pairs (``pack="paired"``, or
-``DCORA_SPMM_PACK=paired`` as in the JAX package).
+Q partitions into a few hundred dense 128x128 tiles (the JAX package's
+unit of work for the TPU's matrix unit).  Q is symmetric, so only its
+upper-triangular tiles are stored.  The product W = X Q runs through a
+hand-written kernel of :mod:`dcora_tpu_torch.core.spmm` that reads only
+the non-empty ``spmm.BLOCK``-sized sub-blocks of those tiles: the
+owner-computes strip kernel by default, or the grouped kernel on the
+compacted two-row K-fused packs when the build packs the tiles in pairs
+(``pack="paired"``, or ``DCORA_SPMM_PACK=paired`` as in the JAX
+package).
 
 Layout contract
 ---------------
@@ -38,12 +40,17 @@ from dcora_tpu_torch.core import problem as prob
 from dcora_tpu_torch.core.lifted import RAState
 from dcora_tpu_torch.core.manifold import inv_sqrt_psd
 from dcora_tpu_torch.core.spmm import (
+    PairBlocks,
+    StripCSR,
     build_output_csr,
-    buckets_to_tensors,
-    spmm_bucketed,
+    spmm_paired,
     spmm_sym,
+    to_device,
 )
-from dcora_tpu_torch.core.spmm_pack import build_row_pairs_bucketed
+from dcora_tpu_torch.core.spmm_pack import (
+    build_row_pairs_bucketed,
+    compact_buckets,
+)
 from dcora_tpu_torch.types import ProblemDims
 
 
@@ -55,21 +62,23 @@ def _np(x) -> np.ndarray:
 class TiledQ(NamedTuple):
     """Upper-triangular block-sparse Q over the tiled scalar ordering."""
 
+    # the dense tiles: the per-tile kernel, the BTD factor, the certifier's
+    # host Q and the plain reference read them
     tiles: torch.Tensor      # [m, T, T] stored tiles, row <= col, sorted
                              # by (col, row)
     tile_rows: torch.Tensor  # i64[m]
     tile_cols: torch.Tensor  # i64[m]
-    # per-output-column CSR for the kernel (spmm.build_output_csr)
-    out_ptr: torch.Tensor    # i32[nt + 1]
-    ent_tile: torch.Tensor   # i32[ne]
-    ent_src: torch.Tensor    # i32[ne]
+    # their non-empty sub-blocks as a block CSR over output strips, both
+    # triangles, at the tile dtype (spmm.build_output_csr): spmm_sym's
+    strips: StripCSR
     # permutations between RA scalar ordering and flat ordering
     ra_of_fl: torch.Tensor   # i64[kpad]; k points at an appended zero column
     fl_of_ra: torch.Tensor   # i64[k]
-    # two-row K-fused wide groups plus their single-row leftover buckets
-    # ((grows, gcols, wide), ...) from spmm_pack.build_row_pairs_bucketed,
-    # at the tile dtype; when set, apply_tiled runs spmm_bucketed on them
-    grp_buckets: Optional[tuple] = None
+    # the two-row K-fused packs and their single-row leftover buckets
+    # (spmm_pack.build_row_pairs_bucketed) compacted to their non-empty
+    # sub-blocks (spmm_pack.compact_buckets) at the tile dtype; when set,
+    # apply_tiled runs spmm_paired on them
+    pairs: Optional[PairBlocks] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -330,11 +339,10 @@ def build_tiled(P: prob.ProblemData, dims: ProblemDims, T: int = 128,
     `tile_precond` is False (per-pose Jacobi), True (diagonal-tile Jacobi)
     or "btd" (block-tridiagonal band factorization).  Tensors land on
     `device` (default: P's device).  `pack` selects the SpMM layout:
-    "paired" also packs the stored upper tiles, at `dtype`, into two-row
-    K-fused groups (TiledQ.grp_buckets) for the grouped kernel; anything
-    else keeps the CSR kernel alone.  None reads DCORA_SPMM_PACK.  The tile
-    list and CSR are kept either way (the BTD factor and the certifier's
-    host Q read them).
+    "paired" also packs the stored upper tiles into two-row K-fused groups
+    and compacts them (TiledQ.pairs) for the grouped kernel; anything else
+    keeps the strip kernel alone.  None reads DCORA_SPMM_PACK.  The tile
+    list and the strip CSR are kept either way.
     """
     if pack is None:
         pack = os.environ.get("DCORA_SPMM_PACK", "bucketed")
@@ -394,31 +402,27 @@ def build_tiled(P: prob.ProblemData, dims: ProblemDims, T: int = 128,
     order = np.lexsort((trow[up], tcol[up]))
     up_rows, up_cols = trow[up][order], tcol[up][order]
     up_tiles = dense[up][order]
-    out_ptr, ent_tile, ent_src = build_output_csr(up_rows, up_cols, nt)
+    strips = build_output_csr(up_rows, up_cols, up_tiles, nt)
 
     def dev(a, dt):
         return torch.as_tensor(np.ascontiguousarray(a), device=device,
                                dtype=dt)
 
-    grp_buckets = None
+    pairs = None
     if pack == "paired":
         np_dt = np.float32 if dtype == torch.float32 else np.float64
-        grp_buckets = buckets_to_tensors(
-            build_row_pairs_bucketed(up_rows, up_cols,
-                                     up_tiles.astype(np_dt), T=T),
-            dtype, device)
+        pairs = to_device(compact_buckets(build_row_pairs_bucketed(
+            up_rows, up_cols, up_tiles.astype(np_dt), T=T)), dtype, device)
 
     meta = TiledMeta(d=d, n=n, l=l, b=b, T=T, nt=nt)
     Q = TiledQ(
         tiles=dev(up_tiles, dtype),
         tile_rows=dev(up_rows, torch.int64),
         tile_cols=dev(up_cols, torch.int64),
-        out_ptr=dev(out_ptr, torch.int32),
-        ent_tile=dev(ent_tile, torch.int32),
-        ent_src=dev(ent_src, torch.int32),
+        strips=to_device(strips, dtype, device),
         ra_of_fl=dev(ra_of_fl, torch.int64),
         fl_of_ra=dev(fl_of_ra, torch.int64),
-        grp_buckets=grp_buckets,
+        pairs=pairs,
     )
 
     # block-Jacobi preconditioner in flat (RCM) order
@@ -514,13 +518,12 @@ def _factor_btd(dense, trow, tcol, nt: int, T: int, reg: float):
 
 def apply_tiled(TP: TiledProblem, Xf: torch.Tensor) -> torch.Tensor:
     """W = Xf Q (symmetric Q):  [r_pad, kpad] -> [r_pad, kpad], through the
-    grouped kernel on the paired buckets when the build made them and the
-    CSR kernel otherwise (their plain versions on the CPU)."""
+    grouped kernel on the compacted paired packs when the build made them
+    and the strip kernel otherwise (their plain versions on the CPU)."""
     Q = TP.Q
-    if Q.grp_buckets is not None:
-        return spmm_bucketed(Q.grp_buckets, Xf.contiguous())
-    return spmm_sym(Q.tiles, Q.tile_rows, Q.tile_cols, Q.out_ptr,
-                    Q.ent_tile, Q.ent_src, Xf.contiguous())
+    if Q.pairs is not None:
+        return spmm_paired(Q.pairs, Xf.contiguous())
+    return spmm_sym(Q.strips, Xf.contiguous())
 
 
 def to_flat(TP: TiledProblem, X: RAState, r_pad: Optional[int] = None

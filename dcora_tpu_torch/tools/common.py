@@ -1,5 +1,6 @@
 """Helpers shared by the port's tools and chip_smoke.py: the card's identity,
-CUDA-event timing, and the default generated 10,648-pose grid.
+CUDA-event timing, the SpMM's bound and its library yardstick, and the
+default generated 10,648-pose grid.
 
 Every measurement here needs a CUDA device; :func:`require_cuda` refuses to
 go on without one (the tools never fall back to the CPU).
@@ -9,8 +10,9 @@ from __future__ import annotations
 
 import os
 import subprocess
-from typing import Callable, List, Sequence
+from typing import Callable, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 LAUNCHES = 100  # back-to-back launches per timing
@@ -19,6 +21,9 @@ LAUNCHES = 100  # back-to-back launches per timing
 # roofline drawn from these is nominal, not measured
 NOMINAL_HBM_GBS = (("H100 80GB HBM3", 3350.0), ("H100 NVL", 3900.0),
                    ("H100 PCIe", 2000.0), ("H200", 4800.0))
+# peak FLOP/s of one H100 SXM outside the tensor cores (NVIDIA data sheet,
+# 700 W): the SpMM uses no matrix instruction
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def require_cuda(tool: str):
@@ -89,6 +94,47 @@ def device_ms(fn: Callable, n: int = 20) -> float:
     if us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
     return us / n * 1e-3
+
+
+def symmetric_csr(Q, kpad: int) -> Tuple[torch.Tensor, int]:
+    """The full symmetric [kpad, kpad] Q of a TiledQ in flat order, both
+    triangles of every stored tile, as a torch sparse CSR tensor (int32
+    indices) at the tiles' dtype and device; and the count of stored
+    non-zeros (the upper tiles' entries, what the SpMM must read of Q).  It
+    is the operand of the library yardstick torch.sparse.mm(Q, X^T), which
+    the port never calls."""
+    tiles = Q.tiles.cpu().numpy()
+    trow, tcol = Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy()
+    T = tiles.shape[-1]
+    t, i, j = np.nonzero(tiles)
+    r, c, v = trow[t] * T + i, tcol[t] * T + j, tiles[t, i, j]
+    off = trow[t] != tcol[t]
+    r, c = np.concatenate([r, c[off]]), np.concatenate([c, r[off]])
+    v = np.concatenate([v, v[off]])
+    order = np.lexsort((c, r))
+    crow = np.zeros(kpad + 1, np.int64)
+    np.cumsum(np.bincount(r, minlength=kpad), out=crow[1:])
+    dev = Q.tiles.device
+    csr = torch.sparse_csr_tensor(
+        torch.as_tensor(crow.astype(np.int32), device=dev),
+        torch.as_tensor(c[order].astype(np.int32), device=dev),
+        torch.as_tensor(v[order], dtype=Q.tiles.dtype, device=dev),
+        size=(kpad, kpad), check_invariants=True)
+    return csr, len(t)
+
+
+def spmm_bound_ms(stored_nnz: int, full_nnz: int, r_pad: int, kpad: int,
+                  dtype: torch.dtype, hbm_gbs: float) -> Tuple[float, str]:
+    """The least time one product W = X Q could take on the card, and what
+    sets it: the larger of the bytes it must move (Q's stored non-zeros
+    read once, X [r_pad, kpad] read once, W written once) over the HBM
+    rate, and its operations (2 per non-zero of the full Q per row) over
+    the peak FLOP/s outside the tensor cores."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    bytes_ms = (stored_nnz + 2 * r_pad * kpad) * esize / (hbm_gbs * 1e6)
+    ops_ms = 2.0 * full_nnz * r_pad / PEAK_FLOPS[dtype] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                            "operations")
 
 
 def default_grid(directory: str) -> str:

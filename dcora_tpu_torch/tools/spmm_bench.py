@@ -7,20 +7,26 @@ Counterpart of ``tools/spmm_bench.py``.  On one graph (default: the
 generated 10,648-pose grid) and one random X, it times
 
   * the plain tile path (``spmm_sym_plain``: index_select -> bmm ->
-    index_add_), whose result is the reference of every other row;
-  * kernel 1, ``spmm_sym`` (owner-computes from the output CSR);
-  * kernel 2, ``spmm_symmetric`` (the per-tile list, atomics);
-  * kernel 3 with one row per group (R = 1): the fixed-G layout at G = 2, 4,
-    8, 16 and the bucketed multi-width layout;
-  * kernel 3 on the paired layout (R = 2 plus its R = 1 leftovers).
+    index_add_ over the dense 128 x 128 tiles), whose result is the
+    reference of every other row;
+  * the library yardstick ``torch.sparse.mm`` on the full symmetric Q in
+    CSR form (cuSPARSE), with X^T made outside the timed call; the port
+    never calls it;
+  * kernel 1, ``spmm_sym`` (owner-computes over output strips of the
+    non-empty B x B sub-blocks) at B = ``spmm.BLOCK`` and at the other
+    edge of ``spmm.BLOCKS``;
+  * kernel 2, ``spmm_symmetric`` (the per-tile list of dense tiles,
+    atomics);
+  * kernel 3, ``spmm_paired`` (the row-group packs' non-empty sub-blocks,
+    one launch) on the paired pack at both edges, and on the single-row
+    bucketed pack at ``spmm.BLOCK``.
 
 For each row it prints ms per product (CUDA events around back-to-back
 launches, median of 3 turns), the device ms per product (the kernels' own
-durations under torch.profiler, without the host's launch overhead: the
-bucketed rows launch one kernel per bucket), the tile MB the layout streams,
-and the error relative to max|W| of the plain result.  A roofline line,
-where printed, uses the card's nominal (data-sheet) HBM bandwidth.  Refuses
-to run without CUDA.
+durations under torch.profiler, without the host's launch overhead), the MB
+of Q data the layout reads (values and indices), the error relative to
+max|W| of the plain result, and the product's bound (``common.spmm_bound_ms``
+at the card's data-sheet HBM rate).  Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import argparse
 import json
 import os
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -51,45 +58,47 @@ def padded_tile_list(Q: tiled.TiledQ, chunk: int = 8):
     return rows, cols, tiles
 
 
-def layouts(TP: tiled.TiledProblem):
-    """{row label: (fn of X, streamed tile bytes)} of every backend."""
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def layouts(TP: tiled.TiledProblem, X: torch.Tensor):
+    """{row label: (thunk computing W = X Q, bytes of Q data it reads)} of
+    every backend, on X."""
     Q, T = TP.Q, TP.meta.T
     dt, dev = Q.tiles.dtype, Q.tiles.device
-    esize = Q.tiles.element_size()
     trow, tcol = Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy()
     tiles_np = Q.tiles.cpu().numpy()
-    tile_b = T * T * esize
     rows, cols, tl = padded_tile_list(Q)
+    csr, _ = common.symmetric_csr(Q, TP.meta.kpad)
+    Xt = X.t().contiguous()
+    other = next(b for b in spmm.BLOCKS if b != spmm.BLOCK)
     out = {
         "plain tile path": (
-            lambda X: spmm.spmm_sym_plain(Q.tiles, Q.tile_rows,
-                                          Q.tile_cols, X),
-            Q.tiles.shape[0] * tile_b),
-        "spmm_sym (kernel 1, CSR)": (
-            lambda X: spmm.spmm_sym(Q.tiles, Q.tile_rows, Q.tile_cols,
-                                    Q.out_ptr, Q.ent_tile, Q.ent_src, X),
-            Q.ent_tile.shape[0] * tile_b),
-        "spmm_symmetric (kernel 2, per tile)": (
-            lambda X: spmm.spmm_symmetric(rows, cols, tl, X),
-            tl.shape[0] * tile_b),
+            lambda: spmm.spmm_sym_plain(Q.tiles, Q.tile_rows, Q.tile_cols,
+                                        X), _nbytes(Q.tiles)),
+        "library torch.sparse.mm (CSR)": (
+            lambda: torch.sparse.mm(csr, Xt).t(),
+            _nbytes(csr.crow_indices(), csr.col_indices(), csr.values())),
     }
-
-    def wide_bytes(bk):
-        return sum(b[2].numel() for b in bk) * esize
-
-    for G in (2, 4, 8, 16):
-        bk = spmm.buckets_to_tensors([spmm_pack.build_row_groups(
-            trow, tcol, tiles_np, T=T, G=G)], dt, dev)
-        out[f"grouped G={G} (kernel 3, R=1)"] = (
-            lambda X, bk=bk: spmm.spmm_grouped(*bk[0], X), wide_bytes(bk))
-    for name, packer in (("bucketed", spmm_pack.build_row_groups_bucketed),
-                         ("paired", spmm_pack.build_row_pairs_bucketed)):
-        bk = spmm.buckets_to_tensors(packer(trow, tcol, tiles_np, T=T),
-                                     dt, dev)
-        widths = [int(b[1].shape[1]) for b in bk]
-        kind = "R=2 + R=1 leftovers" if name == "paired" else "R=1"
-        out[f"{name} W={widths} (kernel 3, {kind})"] = (
-            lambda X, bk=bk: spmm.spmm_bucketed(bk, X), wide_bytes(bk))
+    for B in (spmm.BLOCK, other):
+        S = Q.strips if B == spmm.BLOCK else spmm.to_device(
+            spmm.build_output_csr(trow, tcol, tiles_np, TP.meta.nt, B=B),
+            dt, dev)
+        out[f"spmm_sym (kernel 1, strips B={B})"] = (
+            lambda S=S: spmm.spmm_sym(S, X), _nbytes(*S))
+    out["spmm_symmetric (kernel 2, per tile)"] = (
+        lambda: spmm.spmm_symmetric(rows, cols, tl, X),
+        _nbytes(rows, cols, tl))
+    packs = [("paired", spmm_pack.build_row_pairs_bucketed, B)
+             for B in (spmm.BLOCK, other)]
+    packs.append(("bucketed R=1", spmm_pack.build_row_groups_bucketed,
+                  spmm.BLOCK))
+    for name, packer, B in packs:
+        Pb = spmm.to_device(spmm_pack.compact_buckets(
+            packer(trow, tcol, tiles_np, T=T), B=B), dt, dev)
+        out[f"{name} (kernel 3, B={B})"] = (
+            lambda Pb=Pb: spmm.spmm_paired(Pb, X), _nbytes(*Pb))
     return out
 
 
@@ -110,36 +119,51 @@ def run(path: str, rank: int = 5, dtype=torch.float32, verbose=True):
     rng = np.random.default_rng(0)
     X = torch.as_tensor(rng.standard_normal((r_pad, TP.meta.kpad)),
                         dtype=dtype, device="cuda")
-    backends = layouts(TP)
-    outs = {k: fn(X) for k, (fn, _) in backends.items()}
+    backends = layouts(TP, X)
+    outs = {k: fn() for k, (fn, _) in backends.items()}
     torch.cuda.synchronize()
     ref = outs["plain tile path"]
     scale = float(ref.abs().max())
-    ms = common.time_turns_ms([lambda fn=fn: fn(X)
-                               for fn, _ in backends.values()])
-    gbs = common.nominal_hbm_gbs(name)
+    ms = common.time_turns_ms([fn for fn, _ in backends.values()])
+    gbs = common.nominal_hbm_gbs(name) or common.NOMINAL_HBM_GBS[0][1]
+    csr, stored_nnz = common.symmetric_csr(TP.Q, TP.meta.kpad)
+    res["bound_ms"], res["bound_by"] = common.spmm_bound_ms(
+        stored_nnz, csr.values().numel(), r_pad, TP.meta.kpad, dtype, gbs)
+    res["host_build_s"] = host_build_seconds(TP)
     if verbose:
         print(f"{res['dataset']}: n={res['n']} nt={res['nt']} "
               f"tiles={res['tiles']} {res['dtype']} r_pad={r_pad} on "
               f"{res['nvidia_smi']}")
-        if gbs:
-            print(f"roofline: nominal HBM bandwidth {gbs:.0f} GB/s "
-                  f"(data sheet of {name}, not measured)")
+        print(f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+              f"{stored_nnz} stored non-zeros, X and W once, at the data "
+              f"sheet's {gbs:.0f} GB/s); host build s {res['host_build_s']}")
     for (label, (fn, nbytes)), t in zip(backends.items(), ms):
         err = float((outs[label] - ref).abs().max()) / scale
-        dev_ms = common.device_ms(lambda: fn(X))
-        row = dict(label=label, ms=t, device_ms=dev_ms,
-                   streamed_mb=nbytes / 1e6, rel_err=err)
-        if gbs:
-            row["nominal_bytes_bound_ms"] = nbytes / (gbs * 1e6)
-        res["rows"].append(row)
+        dev_ms = common.device_ms(fn)
+        res["rows"].append(dict(label=label, ms=t, device_ms=dev_ms,
+                                q_mb=nbytes / 1e6, rel_err=err))
         if verbose:
-            bound = ("  (nominal bytes bound "
-                     f"{row['nominal_bytes_bound_ms']:.4f} ms)"
-                     if gbs else "")
-            print(f"  {label:44s} {t:8.4f} ms  device {dev_ms:8.4f} ms  "
-                  f"{nbytes / 1e6:7.1f} MB  rel err {err:.2e}{bound}")
+            print(f"  {label:40s} {t:8.4f} ms  device {dev_ms:8.4f} ms  "
+                  f"{nbytes / 1e6:7.2f} MB of Q  rel err {err:.2e}")
     return res
+
+
+def host_build_seconds(TP: tiled.TiledProblem) -> dict:
+    """Host seconds of the numpy steps that make the sub-block layouts
+    from the stored tiles, at spmm.BLOCK: the strip CSR, the paired
+    packer and its compaction."""
+    Q = TP.Q
+    trow, tcol = Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy()
+    tiles = Q.tiles.cpu().numpy()
+    t0 = time.perf_counter()
+    spmm.build_output_csr(trow, tcol, tiles, TP.meta.nt)
+    t1 = time.perf_counter()
+    bk = spmm_pack.build_row_pairs_bucketed(trow, tcol, tiles,
+                                            T=TP.meta.T)
+    t2 = time.perf_counter()
+    spmm_pack.compact_buckets(bk)
+    t3 = time.perf_counter()
+    return dict(strip_csr=t1 - t0, pair_packer=t2 - t1, compaction=t3 - t2)
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,10 @@
 """The certified single-robot PGO slice, end to end on the CPU: the PyTorch
 port's driver against the JAX package's staircase on the same generated
 files -- the same certified rank and f* to 1e-8 relative, and an LDL^T
-witness from the port's independent verifier.  The 512-pose grid also runs
-under DCORA_SPMM_PACK=paired (the two-row K-fused buckets)."""
+witness from the port's independent verifier.  The 512-pose grid runs its
+tile products through the strip CSR of the default pack and, again, under
+DCORA_SPMM_PACK=paired through the compacted two-row K-fused packs (the
+plain versions of the two sub-block kernels on the CPU)."""
 
 import json
 
@@ -44,7 +46,9 @@ def reference(tmp_path_factory):
     return get
 
 
-def _port(path, monkeypatch):
+def _port(path, monkeypatch, layouts=None):
+    """Run the port's driver; count the tile products (apply_tiled) and,
+    into `layouts`, the name of the sub-block layout each one read."""
     calls = []
     real = ttiled.apply_tiled
 
@@ -53,6 +57,13 @@ def _port(path, monkeypatch):
         return real(TP, X)
 
     monkeypatch.setattr(ttiled, "apply_tiled", counted)
+    for name in ("spmm_strips_plain", "spmm_paired_plain"):
+        def plain(blocks, X, name=name, real=getattr(spmm, name)):
+            assert blocks.vals.shape[-1] == spmm.BLOCK
+            if layouts is not None:
+                layouts.append(name)
+            return real(blocks, X)
+        monkeypatch.setattr(spmm, name, plain)
     res = {}
     _, f = run(path, certify=True, device="cpu", verbose=False, result=res)
     return f, res["staircase"], calls
@@ -61,7 +72,8 @@ def _port(path, monkeypatch):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_slice_matches_reference(reference, monkeypatch, name):
     path, ref = reference(name)
-    f, st, calls = _port(path, monkeypatch)
+    layouts = []
+    f, st, calls = _port(path, monkeypatch, layouts)
     assert ref["certified"] and st.certified
     assert st.final_rank == ref["rank"]
     np.testing.assert_allclose(f, ref["f"], rtol=1e-8)
@@ -69,6 +81,7 @@ def test_slice_matches_reference(reference, monkeypatch, name):
     assert st.X.rot.device.type == "cpu"
     if st.X.n >= FAST_PATH_MIN_POSES:
         assert calls, "the tiled rtr_fast branch did not run"
+        assert layouts == ["spmm_strips_plain"] * len(calls)
     else:
         assert not calls
     ms = read_g2o_file(path).pose_pose_measurements
@@ -78,9 +91,9 @@ def test_slice_matches_reference(reference, monkeypatch, name):
 
 def test_slice_paired_pack_matches_reference(reference, monkeypatch):
     """The 512-pose grid under DCORA_SPMM_PACK=paired: every tile product
-    of rtr_fast and the tiled Lanczos goes through spmm_bucketed on the
-    paired buckets, and the solve certifies at the reference's rank and
-    f*."""
+    of rtr_fast and the tiled Lanczos goes through spmm_paired on the
+    compacted paired packs, and the solve certifies at the reference's rank
+    and f*."""
     path, ref = reference("grid8")
     monkeypatch.setenv("DCORA_SPMM_PACK", "paired")
     kinds = []
@@ -91,16 +104,18 @@ def test_slice_paired_pack_matches_reference(reference, monkeypatch):
             return real(*args)
         return call
 
-    monkeypatch.setattr(ttiled, "spmm_bucketed",
-                        counted("paired", spmm.spmm_bucketed))
+    monkeypatch.setattr(ttiled, "spmm_paired",
+                        counted("paired", spmm.spmm_paired))
     monkeypatch.setattr(ttiled, "spmm_sym", counted("csr", spmm.spmm_sym))
-    f, st, calls = _port(path, monkeypatch)
+    layouts = []
+    f, st, calls = _port(path, monkeypatch, layouts)
     assert ref["certified"] and st.certified
     assert st.final_rank == ref["rank"]
     np.testing.assert_allclose(f, ref["f"], rtol=1e-8)
     np.testing.assert_allclose(st.f_final, ref["f_lifted"], rtol=1e-8)
     assert calls and "paired" in kinds and "csr" not in kinds
     assert len(kinds) == len(calls)
+    assert layouts == ["spmm_paired_plain"] * len(calls)
     rep = verify_solution(read_g2o_file(path).pose_pose_measurements, st.X,
                           3, eta=1e-3)
     assert rep["certified_indep"] is True

@@ -8,13 +8,14 @@ card run it with
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX).
 Tolerances are relative to max|W|: 1e-12 in f64 and 1e-5 in f32, for a
-different summation order (plus f32 rounding).  The owner-computes kernel
-(spmm_sym) is deterministic and tested for it; the atomics kernels
-(spmm_symmetric, spmm_grouped / spmm_paired) sum in no fixed order, so for
-them repeated launches are held to the same tolerance instead.
+different summation order (plus f32 rounding).  The owner-computes strip
+kernel (spmm_sym) is deterministic and tested for it; the atomics kernels
+(spmm_symmetric, spmm_paired) sum in no fixed order, so for them repeated
+launches are held to the same tolerance instead.  The sub-block kernels
+run at the build's edge spmm.BLOCK and once at the other edge of
+spmm.BLOCKS.
 """
 
-import numpy as np
 import pytest
 import torch
 
@@ -63,16 +64,18 @@ def _operand(TP, r_pad, live, dtype):
 @pytest.mark.parametrize("r_pad,live", CASES)
 def test_kernel_matches_plain_on_card(problem, dtype, r_pad, live):
     TP = _tiled(problem, dtype)
-    assert int(TP.Q.out_ptr[-1]) > TP.Q.tiles.shape[0] > TP.meta.nt
+    S = TP.Q.strips
+    assert S.src.shape[0] > 2 * TP.meta.nt and S.vals.shape[-1] == spmm.BLOCK
     X = _operand(TP, r_pad, live, dtype)
     before = spmm.spmm_sym.launches
     W = tiled.apply_tiled(TP, X)
     assert spmm.spmm_sym.launches == before + 1
     ref = spmm.spmm_sym_plain(TP.Q.tiles, TP.Q.tile_rows, TP.Q.tile_cols, X)
+    plain = spmm.spmm_strips_plain(S, X)
     torch.cuda.synchronize()
     assert W.is_cuda and W.dtype == dtype and W.shape == X.shape
-    err = float((W - ref).abs().max()) / float(ref.abs().max())
-    assert err <= RTOL[dtype], err
+    assert _rel_err(W, plain) <= RTOL[dtype]
+    assert _rel_err(W, ref) <= RTOL[dtype]
     assert not W[live:].any()  # zero rank rows stay zero
 
 
@@ -89,23 +92,21 @@ def test_kernel_is_deterministic(problem, dtype):
 def test_kernel_raises_on_what_it_does_not_take(problem):
     """A CUDA tensor launches the kernel or raises; it never falls back."""
     TP = _tiled(problem, torch.float64)
-    Q = TP.Q
+    S = TP.Q.strips
     X = _operand(TP, 8, 8, torch.float64)
     before = spmm.spmm_sym.launches
     with pytest.raises(ValueError, match="int32"):
-        spmm.spmm_sym(Q.tiles, Q.tile_rows, Q.tile_cols, Q.out_ptr.long(),
-                      Q.ent_tile, Q.ent_src, X)
+        spmm.spmm_sym(S._replace(ptr=S.ptr.long()), X)
     with pytest.raises(ValueError, match="contiguous"):
-        spmm.spmm_sym(Q.tiles, Q.tile_rows, Q.tile_cols, Q.out_ptr,
-                      Q.ent_tile, Q.ent_src,
-                      X.t().contiguous().t())
+        spmm.spmm_sym(S, X.t().contiguous().t())
     with pytest.raises(ValueError, match="different devices"):
-        spmm.spmm_sym(Q.tiles.cpu(), Q.tile_rows, Q.tile_cols, Q.out_ptr,
-                      Q.ent_tile, Q.ent_src, X)
+        spmm.spmm_sym(S._replace(vals=S.vals.cpu()), X)
+    with pytest.raises(ValueError, match="sub-blocks"):
+        spmm.spmm_sym(spmm.to_device(spmm.build_output_csr(
+            TP.Q.tile_rows.cpu().numpy(), TP.Q.tile_cols.cpu().numpy(),
+            TP.Q.tiles.cpu().numpy(), TP.meta.nt, B=2), torch.float64,
+            "cuda"), X)
     assert spmm.spmm_sym.launches == before
-    np.testing.assert_array_equal(spmm.build_output_csr(
-        Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy(), TP.meta.nt)[0],
-        Q.out_ptr.cpu().numpy())
 
 
 def _rel_err(W, ref):
@@ -132,26 +133,26 @@ def test_tile_kernel_matches_plain_on_card(problem, dtype, r_pad, live):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("r_pad,live", CASES)
 def test_paired_kernel_matches_plain_on_card(problem, dtype, r_pad, live):
-    """apply_tiled on a paired build: R = 2 on the pairs, R = 1 on the
-    leftover buckets, all into one W."""
+    """apply_tiled on a paired build: the two-row packs and their leftover
+    buckets, compacted, in one launch."""
     TP = _tiled(problem, dtype, pack="paired")
-    buckets = TP.Q.grp_buckets
-    Rs = [2 if b[0].dim() == 2 else 1 for b in buckets]
-    assert 2 in Rs and 1 in Rs
-    # the graph has off-diagonal (r1, r2) tiles inside a pair
-    assert any(bool((gc == gr[:, 1:]).any()) for gr, gc, _ in buckets
-               if gr.dim() == 2)
+    Pb = TP.Q.pairs
+    assert Pb.vals.shape[-1] == spmm.BLOCK
+    masked = (Pb.run_col & 1).bool()
+    assert masked.any() and not masked.all()
     X = _operand(TP, r_pad, live, dtype)
-    before = (spmm.spmm_paired.launches, spmm.spmm_grouped.launches)
+    before = spmm.launch_counts()
     W = tiled.apply_tiled(TP, X)
-    assert spmm.spmm_paired.launches == before[0] + Rs.count(2)
-    assert spmm.spmm_grouped.launches == before[1] + Rs.count(1)
-    ref = spmm.spmm_bucketed_plain(buckets, X)
+    after = spmm.launch_counts()
+    assert after["spmm_paired"] == before["spmm_paired"] + 1
+    assert {k: v for k, v in after.items() if k != "spmm_paired"} == \
+        {k: v for k, v in before.items() if k != "spmm_paired"}
+    plain = spmm.spmm_paired_plain(Pb, X)
     ref_sym = spmm.spmm_sym_plain(TP.Q.tiles, TP.Q.tile_rows, TP.Q.tile_cols,
                                   X)
     torch.cuda.synchronize()
     assert W.is_cuda and W.dtype == dtype and W.shape == X.shape
-    assert _rel_err(W, ref) <= RTOL[dtype]
+    assert _rel_err(W, plain) <= RTOL[dtype]
     assert _rel_err(W, ref_sym) <= RTOL[dtype]
     assert not W[live:].any()
 
@@ -159,19 +160,45 @@ def test_paired_kernel_matches_plain_on_card(problem, dtype, r_pad, live):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("G", [2, 8])
 def test_grouped_kernel_matches_plain_on_card(problem, dtype, G):
-    """R = 1 on the fixed-G layout (zero pad slots at col == row)."""
+    """Single-row groups (the fixed-G layout, zero pad slots at col ==
+    row), compacted, through the same kernel."""
     TP = _tiled(problem, dtype)
     Q = TP.Q
-    gr, gc, gw = spmm.buckets_to_tensors([spmm_pack.build_row_groups(
+    Pb = spmm.to_device(spmm_pack.compact_buckets([spmm_pack.build_row_groups(
         Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy(),
-        Q.tiles.cpu().numpy(), T=128, G=G)], dtype, "cuda")[0]
+        Q.tiles.cpu().numpy(), T=128, G=G)]), dtype, "cuda")
     X = _operand(TP, 8, 8, dtype)
-    before = spmm.spmm_grouped.launches
-    W = spmm.spmm_grouped(gr, gc, gw, X)
-    assert spmm.spmm_grouped.launches == before + 1
-    ref = spmm.spmm_grouped_plain(gr, gc, gw, X)
+    before = spmm.spmm_paired.launches
+    W = spmm.spmm_paired(Pb, X)
+    assert spmm.spmm_paired.launches == before + 1
+    ref = spmm.spmm_paired_plain(Pb, X)
     torch.cuda.synchronize()
     assert _rel_err(W, ref) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("r_pad,live", [(8, 8), (16, 16), (8, 1)])
+def test_other_block_edge_matches_plain_on_card(problem, dtype, r_pad, live):
+    """Both sub-block kernels built at the other edge of spmm.BLOCKS (the
+    one tools/spmm_bench.py compares against)."""
+    TP = _tiled(problem, dtype)
+    Q = TP.Q
+    B = next(b for b in spmm.BLOCKS if b != spmm.BLOCK)
+    rows, cols = Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy()
+    tiles = Q.tiles.cpu().numpy()
+    S = spmm.to_device(spmm.build_output_csr(rows, cols, tiles, TP.meta.nt,
+                                             B=B), dtype, "cuda")
+    Pb = spmm.to_device(spmm_pack.compact_buckets(
+        spmm_pack.build_row_pairs_bucketed(rows, cols, tiles), B=B), dtype,
+        "cuda")
+    X = _operand(TP, r_pad, live, dtype)
+    ref = spmm.spmm_sym_plain(Q.tiles, Q.tile_rows, Q.tile_cols, X)
+    W1, W3 = spmm.spmm_sym(S, X), spmm.spmm_paired(Pb, X)
+    torch.cuda.synchronize()
+    assert _rel_err(W1, ref) <= RTOL[dtype]
+    assert _rel_err(W3, ref) <= RTOL[dtype]
+    assert torch.equal(W1, spmm.spmm_sym(S, X))
+    assert not W1[live:].any() and not W3[live:].any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -193,8 +220,7 @@ def test_atomics_kernels_raise_on_what_they_do_not_take(problem):
     TP = _tiled(problem, torch.float64, pack="paired")
     rows, cols, tiles = padded_tile_list(TP.Q)
     X = _operand(TP, 8, 8, torch.float64)
-    pair = next(b for b in TP.Q.grp_buckets if b[0].dim() == 2)
-    single = next(b for b in TP.Q.grp_buckets if b[0].dim() == 1)
+    Pb = TP.Q.pairs
     before = spmm.launch_counts()
     with pytest.raises(ValueError, match="int32"):
         spmm.spmm_symmetric(rows.long(), cols, tiles, X)
@@ -206,13 +232,13 @@ def test_atomics_kernels_raise_on_what_they_do_not_take(problem):
         spmm.spmm_symmetric(rows, cols, tiles[:, :32, :32].contiguous(),
                             X[:, :32 * TP.meta.nt].contiguous())
     with pytest.raises(ValueError, match="int32"):
-        spmm.spmm_paired(pair[0].long(), pair[1], pair[2], X)
+        spmm.spmm_paired(Pb._replace(ent_col=Pb.ent_col.long()), X)
     with pytest.raises(ValueError, match="contiguous"):
-        spmm.spmm_paired(*pair, X.t().contiguous().t())
-    with pytest.raises(ValueError, match="2-row"):
-        spmm.spmm_paired(*single, X)
-    with pytest.raises(ValueError, match="1-row"):
-        spmm.spmm_grouped(*pair, X)
+        spmm.spmm_paired(Pb, X.t().contiguous().t())
+    with pytest.raises(TypeError):
+        spmm.spmm_paired(Pb, X.float())
+    with pytest.raises(ValueError, match="do not index"):
+        spmm.spmm_paired(Pb._replace(run_ptr=Pb.run_ptr[:-1]), X)
     with pytest.raises(ValueError, match="different devices"):
-        spmm.spmm_bucketed([(single[0], single[1], single[2].cpu())], X)
+        spmm.spmm_paired(Pb._replace(vals=Pb.vals.cpu()), X)
     assert spmm.launch_counts() == before

@@ -1,18 +1,20 @@
 """The port's packers and the plain versions of its per-tile (spmm_symmetric)
-and grouped / paired (spmm_grouped, spmm_paired, spmm_bucketed) SpMM kernels
-against the JAX package, on the same numpy inputs.
+and grouped (spmm_paired, on the packs compacted by
+spmm_pack.compact_buckets) SpMM kernels against the JAX package, on the
+same numpy inputs.
 
-* spmm_pack's five functions give arrays equal to pallas_spmm's at f32, on a
+* spmm_pack's five packers give arrays equal to pallas_spmm's at f32, on a
   tile list with (r1, r2) tiles inside row pairs and (r2, r2) diagonals;
-* the plain grouped / paired versions agree with the Pallas kernels in
-  interpret mode (as tests/test_tiled.py runs them), at T = 32 and 128;
+* spmm_paired's plain version on the compacted packs agrees with the Pallas
+  grouped / paired kernels in interpret mode (as tests/test_tiled.py runs
+  them) on the same packs, at T = 32 and 128;
 * spmm_symmetric's plain version agrees with JAX's apply_tiled (XLA path);
-  the CUDA kernel itself has no interpret mode and no JAX test
-  (tests/test_torch_spmm_cuda.py holds it against this plain version on the
-  card);
-* a numpy walk of the CUDA grouped kernel's blocks, with its mask rule
-  (c == r1 only), reproduces the dense product, and the rule that also
-  masks c == r2 does not.
+  the CUDA kernels themselves have no interpret mode and no JAX test
+  (tests/test_torch_spmm_cuda.py holds them against these plain versions
+  on the card);
+* a numpy walk of the packs' slots, with their mask rule (c == r1 only),
+  reproduces the dense product, and the rule that also masks c == r2 does
+  not (tests/test_torch_spmm_blocks.py walks the compacted sub-blocks).
 
 Tolerances: 1e-12 of max|W| in f64, F32_ATOL (2e-6) in f32.
 """
@@ -36,6 +38,11 @@ from torch_port_common import (
 )
 
 F64_TOL = 1e-12
+
+
+def _compact(buckets, dtype):
+    """numpy packs -> the grouped kernel's PairBlocks on the CPU."""
+    return spmm.to_device(spmm_pack.compact_buckets(buckets), dtype, "cpu")
 
 
 def _band_list(T=16, nt=13, seed=0, dtype=np.float32):
@@ -179,16 +186,17 @@ def test_paired_plain_matches_pallas_interpret(graph_tiles, T):
         [tuple(jnp.asarray(a) for a in b) for b in buckets], jnp.asarray(X),
         T=T, interpret=True)
     Xt = torch.as_tensor(X)
-    tb = spmm.buckets_to_tensors(buckets, torch.float32, "cpu")
-    assert_close(spmm.spmm_bucketed(tb, Xt), ref, rtol=F32_ATOL)
+    assert_close(spmm.spmm_paired(_compact(buckets, torch.float32), Xt),
+                 ref, rtol=F32_ATOL)
     # the two-row buckets alone, against the paired kernel alone
-    for (gr, gc, gw), (tgr, tgc, tgw) in zip(buckets, tb):
+    for gr, gc, gw in buckets:
         if gr.ndim != 2:
             continue
         ref = pallas_spmm.spmm_paired(
             jnp.asarray(gr), jnp.asarray(gc), jnp.asarray(gw),
             jnp.asarray(X), T=T, G=gc.shape[1], interpret=True)
-        assert_close(spmm.spmm_paired(tgr, tgc, tgw, Xt), ref,
+        assert_close(spmm.spmm_paired(
+                         _compact([(gr, gc, gw)], torch.float32), Xt), ref,
                      rtol=F32_ATOL,
                      scale=float(np.abs(np.asarray(ref)).max()) + 1e-30)
 
@@ -202,9 +210,8 @@ def test_grouped_plain_matches_pallas_interpret(graph_tiles, G):
     ref = pallas_spmm.spmm_grouped(jnp.asarray(gr), jnp.asarray(gc),
                                    jnp.asarray(gw), jnp.asarray(X), T=32, G=G,
                                    interpret=True)
-    tb = spmm.buckets_to_tensors([(gr, gc, gw)], torch.float32, "cpu")[0]
-    assert_close(spmm.spmm_grouped(*tb, torch.as_tensor(X)), ref,
-                 rtol=F32_ATOL)
+    assert_close(spmm.spmm_paired(_compact([(gr, gc, gw)], torch.float32),
+                                  torch.as_tensor(X)), ref, rtol=F32_ATOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -240,10 +247,10 @@ def test_symmetric_plain_matches_jax_apply_tiled(dtype, r_pad):
 
 
 def _walk_grouped_kernel(buckets, X, mask_r2=False):
-    """The blocks of csrc/spmm_grouped.cu in numpy: one block per slot
-    (g, j); the forward product summed over the group's rows into
-    W[:, c_j], the transposed one into W[:, r_h] unless c_j == r_1 (or,
-    with mask_r2, also c_j == r_2: the wrong rule)."""
+    """The packs' slots in numpy, at tile level: per slot (g, j), the
+    forward product summed over the group's rows into W[:, c_j], the
+    transposed one into W[:, r_h] unless c_j == r_1 (or, with mask_r2,
+    also c_j == r_2: the wrong rule)."""
     W = np.zeros_like(X)
     for grows, gcols, wide in buckets:
         ng, G = gcols.shape
@@ -275,10 +282,9 @@ def test_grouped_kernel_walk_and_mask_rule():
     assert_close(_walk_grouped_kernel(buckets, X), ref, rtol=F64_TOL)
     wrong = _walk_grouped_kernel(buckets, X, mask_r2=True)
     assert np.abs(wrong - ref).max() > 1e-3 * np.abs(ref).max()
-    # and the plain version, in f64, on the same buckets
-    tb = spmm.buckets_to_tensors(buckets, torch.float64, "cpu")
-    assert_close(spmm.spmm_bucketed(tb, torch.as_tensor(X)), ref,
-                 rtol=F64_TOL)
+    # and the plain version, in f64, on the same buckets compacted
+    assert_close(spmm.spmm_paired(_compact(buckets, torch.float64),
+                                  torch.as_tensor(X)), ref, rtol=F64_TOL)
 
 
 # --------------------------------------------------------------------------
@@ -300,14 +306,16 @@ def test_build_tiled_paired_pack(small_graphs, monkeypatch, dtype):
     TPp = ttiled.build_tiled(Pt, gt.dims, T=32, dtype=dtype, pack="paired")
     monkeypatch.setenv("DCORA_SPMM_PACK", "paired")
     TPe = ttiled.build_tiled(Pt, gt.dims, T=32, dtype=dtype)
-    assert TPc.Q.grp_buckets is None
-    assert TPp.Q.grp_buckets is not None and TPe.Q.grp_buckets is not None
-    for gr, gc, gw in TPp.Q.grp_buckets:
-        assert gr.dtype == gc.dtype == torch.int32 and gw.dtype == dtype
-    # the tile list and CSR stay
-    for name in ("tiles", "tile_rows", "tile_cols", "out_ptr", "ent_tile",
-                 "ent_src"):
+    assert TPc.Q.pairs is None
+    assert TPp.Q.pairs is not None and TPe.Q.pairs is not None
+    Pb = TPp.Q.pairs
+    assert Pb.vals.dtype == dtype and Pb.vals.shape[-1] == spmm.BLOCK
+    assert {a.dtype for a in Pb[:3]} == {torch.int32}
+    # the tile list and the strip CSR stay
+    for name in ("tiles", "tile_rows", "tile_cols"):
         assert torch.equal(getattr(TPp.Q, name), getattr(TPc.Q, name))
+    for a, b in zip(TPp.Q.strips, TPc.Q.strips):
+        assert torch.equal(a, b)
     X = torch.as_tensor(np.random.default_rng(4).standard_normal(
         (8, TPc.meta.kpad)), dtype=dtype)
     tol = F64_TOL if dtype == torch.float64 else F32_ATOL
@@ -318,18 +326,17 @@ def test_build_tiled_paired_pack(small_graphs, monkeypatch, dtype):
 
 
 def test_convert_carries_paired_buckets(small_graphs, monkeypatch):
-    """A paired JAX build converts with its buckets, the port's own paired
-    build makes the same ones, and both apply as the Pallas kernel does."""
+    """A paired JAX build converts with its buckets (compacted), the port's
+    own paired build makes the same ones, and both apply as the Pallas
+    kernel does."""
     gj, gt, Pj, Pt = small_graphs
     monkeypatch.setenv("DCORA_SPMM_PACK", "paired")
     TPj = jtiled.build_tiled(Pj, gj.dims, dtype=np.float32, with_pallas=True)
     TPc = convert.tiled_problem(TPj)
     TPt = ttiled.build_tiled(Pt, gt.dims, dtype=torch.float32)
-    assert TPc.Q.grp_buckets is not None
-    assert len(TPc.Q.grp_buckets) == len(TPt.Q.grp_buckets)
-    for a, b in zip(TPc.Q.grp_buckets, TPt.Q.grp_buckets):
-        for x, y in zip(a, b):
-            assert torch.equal(x, y)
+    assert TPc.Q.pairs is not None
+    for x, y in zip(TPc.Q.pairs, TPt.Q.pairs):
+        assert torch.equal(x, y)
     X = np.random.default_rng(5).standard_normal(
         (8, TPt.meta.kpad)).astype(np.float32)
     ref = pallas_spmm.spmm_bucketed(TPj.Q.grp_buckets, jnp.asarray(X),
@@ -339,7 +346,7 @@ def test_convert_carries_paired_buckets(small_graphs, monkeypatch):
     # a bucketed (not paired) JAX build carries no buckets across
     monkeypatch.setenv("DCORA_SPMM_PACK", "bucketed")
     TPb = jtiled.build_tiled(Pj, gj.dims, dtype=np.float32, with_pallas=True)
-    assert convert.tiled_problem(TPb).Q.grp_buckets is None
+    assert convert.tiled_problem(TPb).Q.pairs is None
 
 
 # --------------------------------------------------------------------------
@@ -350,11 +357,8 @@ def test_convert_carries_paired_buckets(small_graphs, monkeypatch):
 def test_wrappers_reject_what_the_kernels_do_not_take():
     rows, cols, tiles = _band_list(dtype=np.float64)
     nt, T = 13, 16
-    buckets = spmm.buckets_to_tensors(
-        spmm_pack.build_row_pairs_bucketed(rows, cols, tiles, T=T),
-        torch.float64, "cpu")
-    pair = next(b for b in buckets if b[0].dim() == 2)
-    single = next(b for b in buckets if b[0].dim() == 1)
+    Pb = _compact(spmm_pack.build_row_pairs_bucketed(rows, cols, tiles, T=T),
+                  torch.float64)
     X = torch.zeros((8, nt * T), dtype=torch.float64)
     r, c = torch.as_tensor(rows), torch.as_tensor(cols)
     t = torch.as_tensor(tiles)
@@ -365,21 +369,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         spmm.spmm_symmetric(r, c, t, X[:, :-1])
     with pytest.raises(ValueError):
         spmm.spmm_symmetric(r[:-1], c, t, X)
-    with pytest.raises(ValueError, match="2-row"):
-        spmm.spmm_paired(*single, X)
-    with pytest.raises(ValueError, match="1-row"):
-        spmm.spmm_grouped(*pair, X)
-    with pytest.raises(ValueError, match="inconsistent"):
-        spmm.spmm_bucketed([(pair[0], pair[1], pair[2][:, :, :-T])], X)
+    with pytest.raises(TypeError):
+        spmm.spmm_paired(Pb, X.float())
+    with pytest.raises(ValueError, match="do not index"):
+        spmm.spmm_paired(Pb._replace(run_ptr=Pb.run_ptr[:-1]), X)
+    with pytest.raises(ValueError, match=r"\[ne, B, B\]"):
+        spmm.spmm_paired(Pb._replace(vals=Pb.vals[:, :, :2]), X)
     with pytest.raises(ValueError, match="no buckets"):
-        spmm.spmm_bucketed([], X)
+        spmm_pack.compact_buckets([])
     # a tensor on any device other than the CPU never takes the plain path
     with pytest.raises(ValueError, match="unsupported device"):
         spmm.spmm_symmetric(r.to("meta"), c.to("meta"), t.to("meta"),
                             X.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
-        spmm.spmm_bucketed([tuple(a.to("meta") for a in pair)],
-                           X.to("meta"))
+        spmm.spmm_paired(type(Pb)(*(a.to("meta") for a in Pb)),
+                         X.to("meta"))
     spmm.spmm_symmetric(r, c, t, X)
-    spmm.spmm_bucketed(buckets, X)
+    spmm.spmm_paired(Pb, X)
     assert spmm.launch_counts() == before  # the plain paths launch none

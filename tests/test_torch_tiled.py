@@ -1,7 +1,7 @@
 """Tiled block-sparse path and the SpMM kernel module of the PyTorch port vs
 the JAX package: the host tile build, apply_tiled (spmm_sym_plain on the
 CPU) against JAX's apply_tiled and its Pallas kernel in interpret mode,
-the kernel's CSR index, and the flat manifold/preconditioner ops."""
+the kernel's strip CSR, and the flat manifold/preconditioner ops."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -73,36 +73,40 @@ def test_convert_from_bucketed_groups(graphs):
     assert TPj.Q.grp_buckets is not None
     TPc = convert.tiled_problem(TPj)
     TPt = ttiled.build_tiled(Pt, gt.dims, dtype=torch.float32)
-    for name in ("tiles", "tile_rows", "tile_cols", "out_ptr", "ent_tile",
-                 "ent_src", "ra_of_fl", "fl_of_ra"):
+    for name in ("tiles", "tile_rows", "tile_cols", "ra_of_fl", "fl_of_ra"):
         assert torch.equal(getattr(TPc.Q, name), getattr(TPt.Q, name)), name
+    for name, a, b in zip(spmm.StripCSR._fields, TPc.Q.strips,
+                          TPt.Q.strips):
+        assert torch.equal(a, b), name
 
 
 def _emulate_kernel(TP, X):
-    """The CUDA kernel's traversal in numpy: per output column, the CSR
-    entries in order, X[:, src] A for src <= c and X[:, src] A^T else."""
-    Q, T = TP.Q, TP.meta.T
-    tiles, X = np_of(Q.tiles).astype(np.float64), np_of(X)
-    ptr, ent, src = np_of(Q.out_ptr), np_of(Q.ent_tile), np_of(Q.ent_src)
+    """The CUDA kernel's traversal in numpy: per output strip s of B
+    columns, its entries in order, W[:, sB:sB+B] += X[:, src B:+B] A^T."""
+    ptr, src, vals = (np_of(a) for a in TP.Q.strips)
+    B = vals.shape[-1]
+    X = np_of(X)
     W = np.zeros_like(X)
-    for c in range(TP.meta.nt):
-        for e in range(ptr[c], ptr[c + 1]):
-            A = tiles[ent[e]]
-            xs = X[:, src[e] * T:(src[e] + 1) * T]
-            W[:, c * T:(c + 1) * T] += xs @ (A if src[e] <= c else A.T)
+    for s in range(len(ptr) - 1):
+        for e in range(ptr[s], ptr[s + 1]):
+            W[:, s * B:(s + 1) * B] += X[:, src[e] * B:(src[e] + 1) * B] \
+                @ vals[e].T
     return W
 
 
 @pytest.mark.parametrize("r_pad", [1, 8, 16])
 def test_output_csr_matches_plain(graphs, r_pad):
-    """The CSR index the kernel reads reproduces the plain SpMM."""
+    """The strip CSR the kernel reads reproduces the plain SpMM over the
+    dense tiles."""
     _, TPt = _build_pair(graphs, "pose", torch.float64)
     rng = np.random.default_rng(r_pad)
     X = torch.as_tensor(rng.standard_normal((r_pad, TPt.meta.kpad)))
-    assert_close(_emulate_kernel(TPt, X), ttiled.apply_tiled(TPt, X),
+    Q = TPt.Q
+    assert_close(_emulate_kernel(TPt, X),
+                 spmm.spmm_sym_plain(Q.tiles, Q.tile_rows, Q.tile_cols, X),
                  rtol=1e-13)
-    ptr = np_of(TPt.Q.out_ptr)
-    assert ptr[0] == 0 and ptr[-1] == len(np_of(TPt.Q.ent_tile))
+    ptr, src = np_of(Q.strips.ptr), np_of(Q.strips.src)
+    assert ptr[0] == 0 and ptr[-1] == len(src)
     assert np.all(np.diff(ptr) >= 0)
 
 
@@ -168,26 +172,27 @@ def test_flat_ops_match_jax(graphs, mode):
 
 def test_spmm_sym_rejects_what_the_kernel_does_not_take(graphs):
     _, TPt = _build_pair(graphs, "pose", torch.float64)
-    Q = TPt.Q
+    S = TPt.Q.strips
     X = torch.zeros((8, TPt.meta.kpad), dtype=torch.float64)
-    args = (Q.tiles, Q.tile_rows, Q.tile_cols, Q.out_ptr, Q.ent_tile,
-            Q.ent_src)
     with pytest.raises(TypeError):
-        spmm.spmm_sym(*args, X.float())
+        spmm.spmm_sym(S, X.float())
     with pytest.raises(ValueError):
-        spmm.spmm_sym(*args, X[:, :-1])
+        spmm.spmm_sym(S, X[:, :-1])
     with pytest.raises(ValueError):
-        spmm.spmm_sym(*args, X[0])
+        spmm.spmm_sym(S, X[0])
+    with pytest.raises(ValueError, match="do not index"):
+        spmm.spmm_sym(S._replace(src=S.src[:-1]), X)
     # a tensor on any device other than the CPU never takes the plain path
-    meta_args = tuple(a.to("meta") for a in args)
     with pytest.raises(ValueError, match="unsupported device"):
-        spmm.spmm_sym(*meta_args, X.to("meta"))
+        spmm.spmm_sym(spmm.StripCSR(*(a.to("meta") for a in S)),
+                      X.to("meta"))
     before = spmm.spmm_sym.launches
-    spmm.spmm_sym(*args, X)
+    spmm.spmm_sym(S, X)
     assert spmm.spmm_sym.launches == before  # the plain path launches none
 
 
 def test_build_output_csr_rejects_lower_tiles():
     with pytest.raises(ValueError):
-        spmm.build_output_csr(np.array([1]), np.array([0]), 2)
+        spmm.build_output_csr(np.array([1]), np.array([0]),
+                              np.ones((1, 8, 8)), 2)
 

@@ -23,14 +23,18 @@ def test_spmm_bench_backends_agree(dtype):
     _, gt = build_graphs(random_graph_spec(rng, n=110, l=8, b=4))
     TP = ttiled.build_tiled(gt.problem_data(), gt.dims, dtype=dtype,
                             pack="bucketed")
-    backends = spmm_bench.layouts(TP)
-    assert len(backends) == 9
     X = torch.as_tensor(rng.standard_normal((8, TP.meta.kpad)), dtype=dtype)
-    ref = backends["plain tile path"][0](X)
+    backends = spmm_bench.layouts(TP, X)
+    assert len(backends) == 8
+    ref = backends["plain tile path"][0]()
     for label, (fn, nbytes) in backends.items():
         assert nbytes > 0, label
-        assert_close(fn(X), ref, rtol=1e-12 if dtype == torch.float64
+        assert_close(fn(), ref, rtol=1e-12 if dtype == torch.float64
                      else F32_ATOL)
+    # the sub-block layouts read a small part of the dense tiles' bytes
+    tile_bytes = backends["plain tile path"][1]
+    assert all(backends[k][1] < tile_bytes / 4 for k in backends
+               if "kernel 1" in k or "kernel 3" in k)
     rows, cols, tiles = spmm_bench.padded_tile_list(TP.Q)
     assert rows.dtype == torch.int32 and rows.shape[0] % 8 == 0
     assert not tiles[TP.Q.tiles.shape[0]:].any()
