@@ -111,7 +111,7 @@ def build_phase(spmm):
               f"{lib.build_seconds or 0.0:.2f}s)" for lib in libs.values()))
     for name, lib in libs.items():
         for fn, regs, st, ld in ptxas_lines(lib.build_log):
-            phase(f"[ptxas] {name} (B={lib.block}) {fn}: {regs} registers, "
+            phase(f"[ptxas] {name} (B={spmm.BLOCK}) {fn}: {regs} registers, "
                   f"spill stores {st} B, spill loads {ld} B")
             require(st == 0 and ld == 0, f"{fn} spills registers")
 

@@ -53,9 +53,8 @@ import torch
 T_TILE = 128
 # Edge of the sub-blocks that spmm_sym and spmm_paired read: one constant,
 # compiled into their kernels (-DDCORA_BLOCK).  4 is the 3D pose block
-# (d + 1) and gives the fewest bytes; tools/spmm_bench.py also times 8.
+# (d + 1) and gives the fewest bytes (B = 8 was slower on the H100: PERF.md).
 BLOCK = 4
-BLOCKS = (4, 8)  # the edges the sub-block kernels compile for
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -74,18 +73,17 @@ def _nvcc() -> str:
 
 
 class _Library:
-    """One compiled kernel library (one ``.cu`` source at one sub-block
-    edge), built and loaded on first use.  The build's file name carries a
-    hash of the source, the headers it includes and the flags;
-    ``build_log`` keeps what ``-Xptxas -v`` printed (registers, spills)."""
+    """One compiled kernel library (one ``.cu`` source), built and loaded
+    on first use.  The build's file name carries a hash of the source, the
+    headers it includes and the flags; ``build_log`` keeps what ``-Xptxas
+    -v`` printed (registers, spills)."""
 
     def __init__(self, name: str, symbols: Dict[str, list],
-                 headers: Sequence[str], block: int):
+                 headers: Sequence[str]):
         self.name = name
-        self.block = block
         self.source = os.path.join(CSRC, name + ".cu")
         self.headers = [os.path.join(CSRC, h) for h in headers]
-        self.flags = NVCC_FLAGS + [f"-DDCORA_BLOCK={block}"]
+        self.flags = NVCC_FLAGS + [f"-DDCORA_BLOCK={BLOCK}"]
         self.symbols = symbols
         self._lib = None
         self._lock = threading.Lock()
@@ -97,8 +95,8 @@ class _Library:
         for f in (self.source, *self.headers):
             with open(f, "rb") as fh:
                 h.update(fh.read())
-        return os.path.join(BUILD_DIR, f"lib{self.name}_b{self.block}_"
-                                       f"{h.hexdigest()[:12]}.so")
+        return os.path.join(BUILD_DIR,
+                            f"lib{self.name}_{h.hexdigest()[:12]}.so")
 
     def start(self):
         """Start nvcc unless a build of this exact source exists; returns
@@ -156,24 +154,23 @@ _SOURCES = {
                                 "dcora_spmm_grouped_f64")},
                      ["blocks.cuh"]),
 }
-_LIBRARIES: Dict[tuple, _Library] = {}
+_LIBRARIES: Dict[str, _Library] = {}
 _LIBRARIES_LOCK = threading.Lock()
 
 
-def library(name: str, block: int = BLOCK) -> _Library:
-    """The library of csrc/<name>.cu at sub-block edge `block`."""
+def library(name: str) -> _Library:
+    """The library of csrc/<name>.cu."""
     with _LIBRARIES_LOCK:
-        key = (name, block)
-        if key not in _LIBRARIES:
+        if name not in _LIBRARIES:
             symbols, headers = _SOURCES[name]
-            _LIBRARIES[key] = _Library(name, symbols, headers, block)
-        return _LIBRARIES[key]
+            _LIBRARIES[name] = _Library(name, symbols, headers)
+        return _LIBRARIES[name]
 
 
-def build_all(block: int = BLOCK) -> Dict[str, _Library]:
+def build_all() -> Dict[str, _Library]:
     """Build every kernel library, one nvcc per source, all started
     together; then load each.  Returns {name: library}."""
-    libs = {name: library(name, block) for name in _SOURCES}
+    libs = {name: library(name) for name in _SOURCES}
     started = {name: lib.start() for name, lib in libs.items()}
     for name, s in started.items():
         libs[name].finish(s)
@@ -182,9 +179,9 @@ def build_all(block: int = BLOCK) -> Dict[str, _Library]:
     return libs
 
 
-def _entry(lib: str, X: torch.Tensor, block: int = BLOCK):
+def _entry(lib: str, X: torch.Tensor):
     suffix = "f32" if X.dtype == torch.float32 else "f64"
-    return getattr(library(lib, block).get(), f"dcora_{lib}_{suffix}")
+    return getattr(library(lib).get(), f"dcora_{lib}_{suffix}")
 
 
 def _stream(X: torch.Tensor) -> int:
@@ -227,17 +224,11 @@ def _check_kernel(name: str, X: torch.Tensor, data: torch.Tensor, **index):
         raise ValueError(f"{name}: X and Q's values must be contiguous")
 
 
-def _block_edge(name: str, vals: torch.Tensor, kernel: bool) -> int:
-    """The sub-block edge B of vals [ne, B, B]; a launch needs B in
-    BLOCKS."""
-    if vals.dim() != 3 or vals.shape[1] != vals.shape[2]:
-        raise ValueError(f"{name}: vals must be [ne, B, B], got "
-                         f"{tuple(vals.shape)}")
-    B = vals.shape[-1]
-    if kernel and B not in BLOCKS:
-        raise ValueError(f"{name}: the kernel takes {BLOCKS} sub-blocks, "
-                         f"got {B}x{B}")
-    return B
+def _check_blocks(name: str, vals: torch.Tensor):
+    """vals holds [ne, B, B] sub-blocks, B = BLOCK."""
+    if vals.dim() != 3 or vals.shape[1:] != (BLOCK, BLOCK):
+        raise ValueError(f"{name}: vals must be [ne, B, B] sub-blocks with "
+                         f"B = {BLOCK}, got {tuple(vals.shape)}")
 
 
 def _launch(name: str, err: int):
@@ -247,8 +238,11 @@ def _launch(name: str, err: int):
 
 def to_device(blocks, dtype: torch.dtype, device):
     """A StripCSR / PairBlocks of numpy arrays -> the same NamedTuple of
-    contiguous tensors on `device`: int32 indices, values at `dtype`."""
+    contiguous tensors on `device`: int32 indices, values at `dtype`
+    (a plain int field stays as it is)."""
     def dev(a):
+        if isinstance(a, int):
+            return a
         a = np.ascontiguousarray(a)
         dt = dtype if a.dtype.kind == "f" else torch.int32
         return torch.as_tensor(a, dtype=dt, device=device)
@@ -256,22 +250,20 @@ def to_device(blocks, dtype: torch.dtype, device):
     return type(blocks)(*(dev(a) for a in blocks))
 
 
-def nonempty_blocks(a: np.ndarray, B: int) -> np.ndarray:
-    """Mask [n, H/B, W/B] of the B x B blocks of a [n, H, W] that hold a
-    non-zero.  For B up to 8 it reads each B-wide bool row as one integer,
-    so the pass costs about one comparison over `a`."""
+def nonempty_blocks(a: np.ndarray) -> np.ndarray:
+    """Mask [n, H/B, W/B] of the B x B blocks (B = BLOCK) of a [n, H, W]
+    that hold a non-zero.  It reads each B-wide bool row as one B-byte
+    integer, so the pass costs about one comparison over `a`."""
     n, H, W = a.shape
+    B = BLOCK
     nz = np.ascontiguousarray(a != 0)
-    if B in (1, 2, 4, 8):
-        return (nz.view(f"u{B}").reshape(n, H // B, B, W // B) != 0).any(
-            axis=2)
-    return nz.reshape(n, H // B, B, W // B, B).any(axis=(2, 4))
+    return (nz.view(f"u{B}").reshape(n, H // B, B, W // B) != 0).any(axis=2)
 
 
-def _strips_of(X: torch.Tensor, B: int) -> torch.Tensor:
+def _strips_of(X: torch.Tensor) -> torch.Tensor:
     """[r_pad, kpad] -> [kpad / B, r_pad, B] (strip-major view)."""
     r_pad, kpad = X.shape
-    return X.reshape(r_pad, kpad // B, B).transpose(0, 1)
+    return X.reshape(r_pad, kpad // BLOCK, BLOCK).transpose(0, 1)
 
 
 def _from_strips(Ws: torch.Tensor) -> torch.Tensor:
@@ -296,8 +288,7 @@ class StripCSR(NamedTuple):
     vals: torch.Tensor   # [ne, B, B]
 
 
-def build_output_csr(rows, cols, tiles, nt: int,
-                     B: int = BLOCK) -> StripCSR:
+def build_output_csr(rows, cols, tiles, nt: int) -> StripCSR:
     """The StripCSR (numpy arrays, values at the tiles' dtype) of the
     upper-triangular tile list (rows <= cols) of nt tile-columns.
 
@@ -312,11 +303,12 @@ def build_output_csr(rows, cols, tiles, nt: int,
     if np.any(rows > cols):
         raise ValueError("tile list must be upper-triangular (row <= col)")
     m, T = tiles.shape[0], tiles.shape[-1]
+    B = BLOCK
     if T % B:
         raise ValueError(f"{T}x{T} tiles do not split into {B}x{B} blocks")
     TB = T // B
     t5 = tiles.reshape(m, TB, B, TB, B)
-    t, a, b = np.nonzero(nonempty_blocks(tiles, B))
+    t, a, b = np.nonzero(nonempty_blocks(tiles))
     blk = t5[t, a, :, b, :]                               # [n, B, B]
     src_f = rows[t] * TB + a
     out_f = cols[t] * TB + b
@@ -355,8 +347,7 @@ def spmm_strips_plain(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
     source strips -> bmm with the blocks -> index_add_ into the output
     strips."""
     ptr, src, vals = strips
-    B = vals.shape[-1]
-    Xs = _strips_of(X, B)
+    Xs = _strips_of(X)
     out = torch.repeat_interleave(
         torch.arange(ptr.shape[0] - 1, device=X.device),
         (ptr[1:] - ptr[:-1]).long())
@@ -369,16 +360,16 @@ def spmm_strips_plain(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
 def spmm_sym(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
     """W = X Q from the StripCSR of Q (build_output_csr).
 
-    vals [ne, B, B] and X [r_pad, kpad] share f32 or f64, any r_pad >= 1;
-    ptr has kpad / B + 1 entries.  A CUDA X launches csrc/spmm_sym.cu
-    (contiguous int32 ptr/src, B in BLOCKS) or raises; a CPU X runs
+    vals [ne, B, B] (B = BLOCK) and X [r_pad, kpad] share f32 or f64, any
+    r_pad >= 1; ptr has kpad / B + 1 entries.  A CUDA X launches
+    csrc/spmm_sym.cu (contiguous int32 ptr/src) or raises; a CPU X runs
     spmm_strips_plain.
     """
     ptr, src, vals = strips
-    B = _block_edge("spmm_sym", vals, X.device.type == "cuda")
-    _check_x("spmm_sym", X, vals, B)
+    _check_blocks("spmm_sym", vals)
+    _check_x("spmm_sym", X, vals, BLOCK)
     r_pad, kpad = X.shape
-    nstrip = kpad // B
+    nstrip = kpad // BLOCK
     if ptr.dim() != 1 or ptr.shape[0] != nstrip + 1 or \
             src.shape != (vals.shape[0],):
         raise ValueError(f"spmm_sym: ptr {tuple(ptr.shape)} and src "
@@ -387,7 +378,7 @@ def spmm_sym(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
     if X.device.type == "cpu":
         return spmm_strips_plain(strips, X)
     _check_kernel("spmm_sym", X, vals, ptr=ptr, src=src)
-    fn = _entry("spmm_sym", X, B)
+    fn = _entry("spmm_sym", X)
     W = torch.empty_like(X)
     with torch.cuda.device(X.device):
         _launch("spmm_sym", fn(ptr.data_ptr(), src.data_ptr(),
@@ -467,12 +458,14 @@ class PairBlocks(NamedTuple):
     skipped.  The run's entries run_ptr[r]:run_ptr[r+1] are the sub-blocks
     of either row of the group that feed it: entry e sits at the scalar
     column ent_col[e] of its sub-row, with vals[e][kk][jj] =
-    A[aB + kk, bB + jj] of its sub-tile A."""
+    A[aB + kk, bB + jj] of its sub-tile A.  min_kpad is one past the last
+    scalar column any run or entry reaches: X needs at least that many."""
 
     run_ptr: torch.Tensor   # i32[nrun + 1]
     run_col: torch.Tensor   # i32[nrun]
     ent_col: torch.Tensor   # i32[ne]
     vals: torch.Tensor      # [ne, B, B]
+    min_kpad: int
 
 
 def spmm_paired_plain(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
@@ -480,9 +473,9 @@ def spmm_paired_plain(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
     sub-row's and the run's strips of X -> bmm with the block (forward) and
     its transpose (unless masked) -> index_add_ into the run's and the
     sub-row's strips of W."""
-    run_ptr, run_col, ent_col, vals = blocks
-    B = vals.shape[-1]
-    Xs = _strips_of(X, B)
+    run_ptr, run_col, ent_col, vals, _ = blocks
+    B = BLOCK
+    Xs = _strips_of(X)
     run = torch.repeat_interleave(
         torch.arange(run_col.shape[0], device=X.device),
         (run_ptr[1:] - run_ptr[:-1]).long())
@@ -501,24 +494,28 @@ def spmm_paired(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
     """W = X Q from the compacted row-group packs (PairBlocks), every
     bucket in one launch.
 
-    vals [ne, B, B] and X [r_pad, kpad] share f32 or f64, any r_pad >= 1.
-    A CUDA X launches csrc/spmm_grouped.cu (contiguous int32 indices, B in
-    BLOCKS) or raises; a CPU X runs spmm_paired_plain.
+    vals [ne, B, B] (B = BLOCK) and X [r_pad, kpad] share f32 or f64, any
+    r_pad >= 1, kpad >= blocks.min_kpad.  A CUDA X launches
+    csrc/spmm_grouped.cu (contiguous int32 indices) or raises; a CPU X runs
+    spmm_paired_plain.
     """
-    run_ptr, run_col, ent_col, vals = blocks
-    B = _block_edge("spmm_paired", vals, X.device.type == "cuda")
-    _check_x("spmm_paired", X, vals, B)
+    run_ptr, run_col, ent_col, vals, min_kpad = blocks
+    _check_blocks("spmm_paired", vals)
+    _check_x("spmm_paired", X, vals, BLOCK)
     nrun = run_col.shape[0]
     if run_ptr.shape != (nrun + 1,) or ent_col.shape != (vals.shape[0],):
         raise ValueError(f"spmm_paired: run_ptr {tuple(run_ptr.shape)} and "
                          f"ent_col {tuple(ent_col.shape)} do not index "
                          f"{nrun} runs and {vals.shape[0]} blocks")
+    if X.shape[1] < min_kpad:
+        raise ValueError(f"spmm_paired: the packs reach column {min_kpad}, "
+                         f"X has {X.shape[1]}")
     if X.device.type == "cpu":
         return spmm_paired_plain(blocks, X)
     _check_kernel("spmm_paired", X, vals, run_ptr=run_ptr, run_col=run_col,
                   ent_col=ent_col)
     r_pad, kpad = X.shape
-    fn = _entry("spmm_grouped", X, B)
+    fn = _entry("spmm_grouped", X)
     W = torch.empty_like(X)
     with torch.cuda.device(X.device):
         _launch("spmm_paired", fn(

@@ -281,10 +281,10 @@ def build_row_pairs_bucketed(rows, cols, tiles, T: int = 128,
     return out
 
 
-def compact_buckets(buckets, B: int = BLOCK) -> PairBlocks:
-    """The non-empty B x B sub-blocks of a list of wide buckets (single-row
-    or two-row groups, as the packers above make them), as one PairBlocks
-    table of numpy arrays at the buckets' dtype.
+def compact_buckets(buckets) -> PairBlocks:
+    """The non-empty B x B sub-blocks (B = BLOCK) of a list of wide buckets
+    (single-row or two-row groups, as the packers above make them), as one
+    PairBlocks table of numpy arrays at the buckets' dtype.
 
     Slot (g, j) of a bucket, with rows r_h = grows[g, h] and column
     c = gcols[g, j], splits its sub-tile A_hj into sub-blocks (a, b); the
@@ -292,8 +292,9 @@ def compact_buckets(buckets, B: int = BLOCK) -> PairBlocks:
     columns cT + bB .. + B, the forward product K-fused over h), ordered by
     (h, a) inside it.  A run is masked (bit 0 of run_col) when c == r_1:
     the r_1 diagonal tile or a pad slot.  Runs are in bucket, slot and b
-    order.
+    order.  min_kpad is one past the last column a run or an entry reaches.
     """
+    B = BLOCK
     slots, keys, cols, ecols, vals = [], [], [], [], []
     nslot = 0
     for grows, gcols, wide in buckets:
@@ -307,7 +308,7 @@ def compact_buckets(buckets, B: int = BLOCK) -> PairBlocks:
         TB = T // B
         gr = grows.reshape(ng, R).astype(np.int64)
         w7 = wide.reshape(ng, R, TB, B, G, TB, B)
-        g, h, a, j, b = np.nonzero(nonempty_blocks(wide, B).reshape(
+        g, h, a, j, b = np.nonzero(nonempty_blocks(wide).reshape(
             ng, R, TB, G, TB))
         c = gcols[g, j].astype(np.int64)
         slots.append(nslot + g.astype(np.int64) * G + j)
@@ -326,7 +327,10 @@ def compact_buckets(buckets, B: int = BLOCK) -> PairBlocks:
     start = np.ones(len(slot), bool)
     start[1:] = (slot[1:] != slot[:-1]) | (col[1:] != col[:-1])
     run_ptr = np.append(np.flatnonzero(start), len(slot))
+    ecol = np.concatenate(ecols)[order]
+    reach = max(int(np.max(col, initial=0)) & ~1,
+                int(np.max(ecol, initial=0)))
     return PairBlocks(run_ptr.astype(np.int32),
-                      col[start].astype(np.int32),
-                      np.concatenate(ecols)[order].astype(np.int32),
-                      np.ascontiguousarray(np.concatenate(vals)[order]))
+                      col[start].astype(np.int32), ecol.astype(np.int32),
+                      np.ascontiguousarray(np.concatenate(vals)[order]),
+                      reach + B)

@@ -85,15 +85,16 @@ def device_ms(fn: Callable, n: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / n * 1e-3
+    for _ in range(3):  # now and then a profile holds no CUDA event at all
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / n * 1e-3
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def symmetric_csr(Q, kpad: int) -> Tuple[torch.Tensor, int]:

@@ -13,13 +13,11 @@ generated 10,648-pose grid) and one random X, it times
     CSR form (cuSPARSE), with X^T made outside the timed call; the port
     never calls it;
   * kernel 1, ``spmm_sym`` (owner-computes over output strips of the
-    non-empty B x B sub-blocks) at B = ``spmm.BLOCK`` and at the other
-    edge of ``spmm.BLOCKS``;
+    non-empty B x B sub-blocks, B = ``spmm.BLOCK``);
   * kernel 2, ``spmm_symmetric`` (the per-tile list of dense tiles,
     atomics);
   * kernel 3, ``spmm_paired`` (the row-group packs' non-empty sub-blocks,
-    one launch) on the paired pack at both edges, and on the single-row
-    bucketed pack at ``spmm.BLOCK``.
+    one launch) on the paired pack and on the single-row bucketed pack.
 
 For each row it prints ms per product (CUDA events around back-to-back
 launches, median of 3 turns), the device ms per product (the kernels' own
@@ -59,7 +57,8 @@ def padded_tile_list(Q: tiled.TiledQ, chunk: int = 8):
 
 
 def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
 
 
 def layouts(TP: tiled.TiledProblem, X: torch.Tensor):
@@ -72,7 +71,6 @@ def layouts(TP: tiled.TiledProblem, X: torch.Tensor):
     rows, cols, tl = padded_tile_list(Q)
     csr, _ = common.symmetric_csr(Q, TP.meta.kpad)
     Xt = X.t().contiguous()
-    other = next(b for b in spmm.BLOCKS if b != spmm.BLOCK)
     out = {
         "plain tile path": (
             lambda: spmm.spmm_sym_plain(Q.tiles, Q.tile_rows, Q.tile_cols,
@@ -81,23 +79,17 @@ def layouts(TP: tiled.TiledProblem, X: torch.Tensor):
             lambda: torch.sparse.mm(csr, Xt).t(),
             _nbytes(csr.crow_indices(), csr.col_indices(), csr.values())),
     }
-    for B in (spmm.BLOCK, other):
-        S = Q.strips if B == spmm.BLOCK else spmm.to_device(
-            spmm.build_output_csr(trow, tcol, tiles_np, TP.meta.nt, B=B),
-            dt, dev)
-        out[f"spmm_sym (kernel 1, strips B={B})"] = (
-            lambda S=S: spmm.spmm_sym(S, X), _nbytes(*S))
+    out[f"spmm_sym (kernel 1, strips B={spmm.BLOCK})"] = (
+        lambda: spmm.spmm_sym(Q.strips, X), _nbytes(*Q.strips))
     out["spmm_symmetric (kernel 2, per tile)"] = (
         lambda: spmm.spmm_symmetric(rows, cols, tl, X),
         _nbytes(rows, cols, tl))
-    packs = [("paired", spmm_pack.build_row_pairs_bucketed, B)
-             for B in (spmm.BLOCK, other)]
-    packs.append(("bucketed R=1", spmm_pack.build_row_groups_bucketed,
-                  spmm.BLOCK))
-    for name, packer, B in packs:
+    for name, packer in (("paired", spmm_pack.build_row_pairs_bucketed),
+                         ("bucketed R=1",
+                          spmm_pack.build_row_groups_bucketed)):
         Pb = spmm.to_device(spmm_pack.compact_buckets(
-            packer(trow, tcol, tiles_np, T=T), B=B), dt, dev)
-        out[f"{name} (kernel 3, B={B})"] = (
+            packer(trow, tcol, tiles_np, T=T)), dt, dev)
+        out[f"{name} (kernel 3, B={spmm.BLOCK})"] = (
             lambda Pb=Pb: spmm.spmm_paired(Pb, X), _nbytes(*Pb))
     return out
 

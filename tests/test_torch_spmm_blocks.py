@@ -4,8 +4,8 @@ CPU, against the JAX package and against numpy.
 Kernel 1 (``csrc/spmm_sym.cu``) reads Q as a block CSR over output strips
 of B scalar columns (``spmm.build_output_csr``, ``StripCSR``); kernel 3
 (``csrc/spmm_grouped.cu``) reads the row-group packs compacted to their
-non-empty B x B sub-blocks (``spmm_pack.compact_buckets``, ``PairBlocks``).
-Checked here, for B in ``spmm.BLOCKS``:
+non-empty B x B sub-blocks (``spmm_pack.compact_buckets``, ``PairBlocks``),
+B = ``spmm.BLOCK``.  Checked here:
 
 * the compaction round trip: scattering the stored blocks back gives the
   dense tiles (random sparse tiles and graph tiles), and only non-empty
@@ -106,27 +106,30 @@ def _symmetric(rows, cols, tiles, nt):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B", spmm.BLOCKS)
-def test_nonempty_blocks_matches_naive(B):
-    rng = np.random.default_rng(B)
-    a = rng.standard_normal((3, 4 * B, 6 * B)) * \
-        (rng.random((3, 4 * B, 6 * B)) < 0.02)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("density", [0.02, 0.2])
+def test_nonempty_blocks_matches_naive(density, dtype):
+    B = spmm.BLOCK
+    rng = np.random.default_rng(7)
+    a = (rng.standard_normal((3, 4 * B, 6 * B)) *
+         (rng.random((3, 4 * B, 6 * B)) < density)).astype(dtype)
     naive = np.abs(a.reshape(3, 4, B, 6, B)).sum(axis=(2, 4)) > 0
-    np.testing.assert_array_equal(spmm.nonempty_blocks(a, B), naive)
+    np.testing.assert_array_equal(spmm.nonempty_blocks(a), naive)
     assert naive.any() and not naive.all()
 
 
 @pytest.mark.parametrize("source", ["sparse band", "graph"])
-@pytest.mark.parametrize("B", spmm.BLOCKS)
-def test_strip_csr_round_trip(graph, B, source):
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_strip_csr_round_trip(graph, dtype, source):
     """Scattering the strip CSR's blocks back gives the transpose of the Q
     that W = X Q applies (a diagonal tile A is applied as X A, and its
     rounding may leave it not exactly symmetric); each strip's sources
     ascend; no stored block is empty."""
     rows, cols, tiles = _tile_lists(graph)[source]
-    T = tiles.shape[-1]
+    tiles = tiles.astype(dtype)
+    T, B = tiles.shape[-1], spmm.BLOCK
     nt = int(cols.max()) + 1
-    ptr, src, vals = spmm.build_output_csr(rows, cols, tiles, nt, B=B)
+    ptr, src, vals = spmm.build_output_csr(rows, cols, tiles, nt)
     assert ptr.dtype == src.dtype == np.int32 and vals.dtype == tiles.dtype
     assert len(ptr) == nt * T // B + 1 and ptr[-1] == len(src) == len(vals)
     Q = np.zeros((nt * T, nt * T))
@@ -139,18 +142,23 @@ def test_strip_csr_round_trip(graph, B, source):
 
 
 @pytest.mark.parametrize("source", ["sparse band", "graph"])
-@pytest.mark.parametrize("B", spmm.BLOCKS)
-def test_pair_blocks_round_trip(graph, B, source):
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_pair_blocks_round_trip(graph, dtype, source):
     """Scattering the compacted paired packs back gives the stored tiles at
-    their places; no stored block is empty.  (Which runs are masked is
-    checked against the walk in test_slot_walk_and_mask_rule.)"""
+    their places; no stored block is empty; min_kpad is one past the last
+    column reached.  (Which runs are masked is checked against the walk in
+    test_slot_walk_and_mask_rule.)"""
     rows, cols, tiles = _tile_lists(graph)[source]
-    T = tiles.shape[-1]
+    tiles = tiles.astype(dtype)
+    T, B = tiles.shape[-1], spmm.BLOCK
     nt = int(cols.max()) + 1
     buckets = spmm_pack.build_row_pairs_bucketed(rows, cols, tiles, T=T)
-    run_ptr, run_col, ent_col, vals = spmm_pack.compact_buckets(buckets, B=B)
+    run_ptr, run_col, ent_col, vals, min_kpad = \
+        spmm_pack.compact_buckets(buckets)
     assert vals.dtype == tiles.dtype
     assert run_ptr[-1] == len(ent_col) == len(vals)
+    last = np.flatnonzero(np.abs(_symmetric(rows, cols, tiles, nt)).sum(0))
+    assert min_kpad == (last[-1] // B + 1) * B <= nt * T
     D = np.zeros((nt * T, nt * T))
     for r in range(len(run_col)):
         c = run_col[r] & ~1
@@ -168,10 +176,36 @@ def test_pair_blocks_round_trip(graph, B, source):
 def test_layouts_reject_tiles_that_do_not_split():
     rows, cols, tiles = _sparse_band(T=6, nt=3)
     with pytest.raises(ValueError, match="4x4"):
-        spmm.build_output_csr(rows, cols, tiles, 3, B=4)
+        spmm.build_output_csr(rows, cols, tiles, 3)
     with pytest.raises(ValueError, match="multiple of 4"):
         spmm_pack.compact_buckets(
-            spmm_pack.build_row_pairs_bucketed(rows, cols, tiles, T=6), B=4)
+            spmm_pack.build_row_pairs_bucketed(rows, cols, tiles, T=6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_layouts_reject_an_x_they_do_not_fit(dtype):
+    """An X narrower than the strip CSR's strips or the packs' reach is
+    refused before anything is applied: on the card the kernels would
+    write outside W."""
+    rows, cols, tiles = _sparse_band()
+    nt, T = int(cols.max()) + 1, tiles.shape[-1]
+    strips = spmm.to_device(spmm.build_output_csr(rows, cols, tiles, nt),
+                            dtype, "cpu")
+    pairs = spmm.to_device(spmm_pack.compact_buckets(
+        spmm_pack.build_row_pairs_bucketed(rows, cols, tiles, T=T)), dtype,
+        "cpu")
+    X = torch.ones((8, nt * T), dtype=dtype)
+    assert pairs.min_kpad == nt * T
+    for narrow in (X[:, :-T], X[:, :-spmm.BLOCK]):
+        with pytest.raises(ValueError, match="do not index"):
+            spmm.spmm_sym(strips, narrow)
+        with pytest.raises(ValueError, match="reach column"):
+            spmm.spmm_paired(pairs, narrow.contiguous())
+    # a wider X takes the packs (its extra columns get no product)
+    wide = torch.cat([X, X[:, :T]], 1)
+    W = spmm.spmm_paired(pairs, wide)
+    assert torch.equal(W[:, :nt * T], spmm.spmm_paired(pairs, X))
+    assert not W[:, nt * T:].any()
 
 
 # --------------------------------------------------------------------------
@@ -246,7 +280,7 @@ def _walk_strips(strips, X):
     """csrc/spmm_sym.cu in numpy: one warp per output strip, its entries in
     ascending source order, each lane's column written once."""
     ptr, src, vals = strips
-    B = vals.shape[-1]
+    B = spmm.BLOCK
     W = np.zeros_like(X)
     for s in range(len(ptr) - 1):
         acc = np.zeros((X.shape[0], B))
@@ -256,7 +290,7 @@ def _walk_strips(strips, X):
     return W
 
 
-def _walk_slots(buckets, X, B, mask_r2=False):
+def _walk_slots(buckets, X, mask_r2=False):
     """csrc/spmm_grouped.cu's assignment in numpy, from the wide packs: per
     slot (g, j) and sub-column b, the non-empty sub-blocks of the group's
     rows in (h, a) order; their forward products summed (the K-fusion) and
@@ -264,6 +298,7 @@ def _walk_slots(buckets, X, B, mask_r2=False):
     W[:, r_h T + aB] unless c_j == r_1 (or, with mask_r2, also c_j == r_2:
     the wrong rule).  Returns W and the work list [(column | mask, [entry
     columns])] in the order the kernel's table holds it."""
+    B = spmm.BLOCK
     W, work = np.zeros_like(X), []
     for grows, gcols, wide in buckets:
         ng, G = gcols.shape
@@ -294,35 +329,35 @@ def _walk_slots(buckets, X, B, mask_r2=False):
     return W, work
 
 
-@pytest.mark.parametrize("B", spmm.BLOCKS)
-def test_strip_walk_reproduces_dense_product(graph, B):
+@pytest.mark.parametrize("r_pad", [1, 8])
+def test_strip_walk_reproduces_dense_product(graph, r_pad):
     rows, cols, tiles = graph[2]
     T = tiles.shape[-1]
     nt = int(cols.max()) + 1
-    X = np.random.default_rng(B).standard_normal((8, nt * T))
-    strips = spmm.build_output_csr(rows, cols, tiles, nt, B=B)
+    X = np.random.default_rng(r_pad).standard_normal((r_pad, nt * T))
+    strips = spmm.build_output_csr(rows, cols, tiles, nt)
     ref = X @ _symmetric(rows, cols, tiles, nt)
     assert_close(_walk_strips(strips, X), ref, rtol=1e-13)
 
 
 @pytest.mark.parametrize("source", ["sparse band", "graph"])
-@pytest.mark.parametrize("B", spmm.BLOCKS)
-def test_slot_walk_and_mask_rule(graph, B, source):
+@pytest.mark.parametrize("r_pad", [1, 8])
+def test_slot_walk_and_mask_rule(graph, r_pad, source):
     rows, cols, tiles = _tile_lists(graph)[source]
     T = tiles.shape[-1]
     nt = int(cols.max()) + 1
     buckets = spmm_pack.build_row_pairs_bucketed(rows, cols, tiles, T=T)
     assert any(np.any(gc == gr[:, 1:]) for gr, gc, _ in buckets
                if gr.ndim == 2)  # (r1, r2) tiles ride inside pairs
-    X = np.random.default_rng(B).standard_normal((8, nt * T))
+    X = np.random.default_rng(r_pad).standard_normal((r_pad, nt * T))
     ref = X @ _symmetric(rows, cols, tiles, nt)
-    W, work = _walk_slots(buckets, X, B)
+    W, work = _walk_slots(buckets, X)
     assert_close(W, ref, rtol=1e-13)
-    wrong, _ = _walk_slots(buckets, X, B, mask_r2=True)
+    wrong, _ = _walk_slots(buckets, X, mask_r2=True)
     # far outside the walk's 1e-13 (the graph's (r1, r2) tiles can be
     # small against its largest entries)
     assert np.abs(wrong - ref).max() > 1e-6 * np.abs(ref).max()
     # the kernel's table lists exactly the walk's runs, in the same order
-    run_ptr, run_col, ent_col, _ = spmm_pack.compact_buckets(buckets, B=B)
+    run_ptr, run_col, ent_col, _, _ = spmm_pack.compact_buckets(buckets)
     assert [(int(c), [int(e) for e in ent_col[p:q]]) for c, p, q in
             zip(run_col, run_ptr[:-1], run_ptr[1:])] == work

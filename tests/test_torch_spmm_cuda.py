@@ -11,9 +11,7 @@ Tolerances are relative to max|W|: 1e-12 in f64 and 1e-5 in f32, for a
 different summation order (plus f32 rounding).  The owner-computes strip
 kernel (spmm_sym) is deterministic and tested for it; the atomics kernels
 (spmm_symmetric, spmm_paired) sum in no fixed order, so for them repeated
-launches are held to the same tolerance instead.  The sub-block kernels
-run at the build's edge spmm.BLOCK and once at the other edge of
-spmm.BLOCKS.
+launches are held to the same tolerance instead.
 """
 
 import pytest
@@ -21,6 +19,7 @@ import torch
 
 from dcora_tpu_torch import datasets
 from dcora_tpu_torch.core import spmm, spmm_pack, tiled
+from dcora_tpu_torch.core.spmm import T_TILE
 from dcora_tpu_torch.core.graph import LocalGraph
 from dcora_tpu_torch.io import read_g2o_file
 from dcora_tpu_torch.tools.spmm_bench import padded_tile_list
@@ -102,10 +101,9 @@ def test_kernel_raises_on_what_it_does_not_take(problem):
     with pytest.raises(ValueError, match="different devices"):
         spmm.spmm_sym(S._replace(vals=S.vals.cpu()), X)
     with pytest.raises(ValueError, match="sub-blocks"):
-        spmm.spmm_sym(spmm.to_device(spmm.build_output_csr(
-            TP.Q.tile_rows.cpu().numpy(), TP.Q.tile_cols.cpu().numpy(),
-            TP.Q.tiles.cpu().numpy(), TP.meta.nt, B=2), torch.float64,
-            "cuda"), X)
+        spmm.spmm_sym(S._replace(vals=S.vals[:, :2, :2].contiguous()), X)
+    with pytest.raises(ValueError, match="do not index"):
+        spmm.spmm_sym(S, X[:, :-T_TILE].contiguous())
     assert spmm.spmm_sym.launches == before
 
 
@@ -177,31 +175,6 @@ def test_grouped_kernel_matches_plain_on_card(problem, dtype, G):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("r_pad,live", [(8, 8), (16, 16), (8, 1)])
-def test_other_block_edge_matches_plain_on_card(problem, dtype, r_pad, live):
-    """Both sub-block kernels built at the other edge of spmm.BLOCKS (the
-    one tools/spmm_bench.py compares against)."""
-    TP = _tiled(problem, dtype)
-    Q = TP.Q
-    B = next(b for b in spmm.BLOCKS if b != spmm.BLOCK)
-    rows, cols = Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy()
-    tiles = Q.tiles.cpu().numpy()
-    S = spmm.to_device(spmm.build_output_csr(rows, cols, tiles, TP.meta.nt,
-                                             B=B), dtype, "cuda")
-    Pb = spmm.to_device(spmm_pack.compact_buckets(
-        spmm_pack.build_row_pairs_bucketed(rows, cols, tiles), B=B), dtype,
-        "cuda")
-    X = _operand(TP, r_pad, live, dtype)
-    ref = spmm.spmm_sym_plain(Q.tiles, Q.tile_rows, Q.tile_cols, X)
-    W1, W3 = spmm.spmm_sym(S, X), spmm.spmm_paired(Pb, X)
-    torch.cuda.synchronize()
-    assert _rel_err(W1, ref) <= RTOL[dtype]
-    assert _rel_err(W3, ref) <= RTOL[dtype]
-    assert torch.equal(W1, spmm.spmm_sym(S, X))
-    assert not W1[live:].any() and not W3[live:].any()
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_atomics_kernels_repeat_within_tolerance(problem, dtype):
     """Atomics give no fixed summation order: repeated launches need not
     agree bit for bit, but they agree to the kernels' tolerance."""
@@ -241,4 +214,8 @@ def test_atomics_kernels_raise_on_what_they_do_not_take(problem):
         spmm.spmm_paired(Pb._replace(run_ptr=Pb.run_ptr[:-1]), X)
     with pytest.raises(ValueError, match="different devices"):
         spmm.spmm_paired(Pb._replace(vals=Pb.vals.cpu()), X)
+    with pytest.raises(ValueError, match="sub-blocks"):
+        spmm.spmm_paired(Pb._replace(vals=Pb.vals[:, :2, :2].contiguous()), X)
+    with pytest.raises(ValueError, match="reach column"):
+        spmm.spmm_paired(Pb, X[:, :-T_TILE].contiguous())
     assert spmm.launch_counts() == before

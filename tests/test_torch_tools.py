@@ -1,5 +1,5 @@
 """The port's bench entry points (dcora_tpu_torch.tools.{spmm_bench,
-hotloop_bench,bench}) on the CPU: what they can show without a card.  Every
+spmm_ab,hotloop_bench,bench}) on the CPU: what they can show without a card.  Every
 backend that spmm_bench times computes the plain tile path's W (its plain
 versions here, at tolerance 1e-12 of max|W| in f64 and F32_ATOL in f32),
 the CPU baseline of bench runs and is cached where asked, and each tool
@@ -12,7 +12,7 @@ import torch
 import dcora_tpu_torch.core.tiled as ttiled
 from dcora_tpu_torch import datasets
 from dcora_tpu_torch.io import read_g2o_file
-from dcora_tpu_torch.tools import bench, hotloop_bench, spmm_bench
+from dcora_tpu_torch.tools import bench, hotloop_bench, spmm_ab, spmm_bench
 from torch_port_common import F32_ATOL, assert_close, build_graphs, \
     random_graph_spec
 
@@ -25,7 +25,7 @@ def test_spmm_bench_backends_agree(dtype):
                             pack="bucketed")
     X = torch.as_tensor(rng.standard_normal((8, TP.meta.kpad)), dtype=dtype)
     backends = spmm_bench.layouts(TP, X)
-    assert len(backends) == 8
+    assert len(backends) == 6
     ref = backends["plain tile path"][0]()
     for label, (fn, nbytes) in backends.items():
         assert nbytes > 0, label
@@ -57,6 +57,7 @@ def test_tools_refuse_without_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     path = str(tmp_path / "missing.g2o")
     for call in (lambda: spmm_bench.run(path),
+                 lambda: spmm_ab.run(str(tmp_path), str(tmp_path / "ab")),
                  lambda: hotloop_bench.run(path),
                  lambda: bench.run(path)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
