@@ -21,8 +21,8 @@ launch counts set to 0 just before it and read just after:
     and their single-row leftovers, compacted to their non-empty
     sub-blocks), one launch per tile product;
   * the bench entry points: ``tools.spmm_bench`` (every SpMM backend, the
-    per-tile kernel ``csrc/spmm_tile.cu`` included) and ``tools.bench``
-    for both packs.
+    per-tile kernel ``csrc/spmm_tile.cu`` on the tile list's non-empty
+    sub-blocks included) and ``tools.bench`` for both packs.
 
 Sequential and fail-closed: every phase prints a line and any failure
 raises, so the exit code is non-zero and the result line is not printed.
@@ -121,17 +121,18 @@ def kernel_phase(torch, path10k):
     paths' shapes: r_pad 8 and 16 in f32 and f64, and r_pad 8 with one live
     row (the tiled Lanczos operand).  Kernel 1 (spmm_sym) on the strip CSR
     of the default build, kernel 2 (spmm_tile) on the per-tile list padded
-    to 8-tile chunks, kernel 3 (spmm_grouped.cu) on the paired pack's
-    compacted sub-blocks (two-row groups and single-row leftovers in one
-    launch), as apply_tiled runs them.  All timed in turns on the same X
-    with the library call torch.sparse.mm(Q_csr, X^T) (X^T made outside
-    the timed call); each row carries the product's bound."""
+    to 8-tile chunks and compacted to its non-empty sub-blocks (no dense
+    tile reaches the card's kernel), kernel 3 (spmm_grouped.cu) on the
+    paired pack's compacted sub-blocks (two-row groups and single-row
+    leftovers in one launch), as apply_tiled runs them.  All timed in turns
+    on the same X with the library call torch.sparse.mm(Q_csr, X^T) (X^T
+    made outside the timed call); each row carries the product's bound."""
     from dcora_tpu_torch.core import spmm, tiled
     from dcora_tpu_torch.core.graph import LocalGraph
     from dcora_tpu_torch.io import read_g2o_file
     from dcora_tpu_torch.solvers import make_preconditioner
     from dcora_tpu_torch.tools import common
-    from dcora_tpu_torch.tools.spmm_bench import padded_tile_list
+    from dcora_tpu_torch.tools.spmm_bench import tile_blocks
 
     ds = read_g2o_file(path10k)
     g = LocalGraph(0, 5, 3)
@@ -146,7 +147,11 @@ def kernel_phase(torch, path10k):
         TP = tiled.build_tiled(P, g.dims, dtype=dtype, precond=M,
                                pack="paired")
         Q, kpad = TP.Q, TP.meta.kpad
-        tr, tc, tl = padded_tile_list(Q)
+        tb = tile_blocks(Q)
+        nblk = int(spmm.nonempty_blocks(Q.tiles.cpu().numpy()).sum())
+        require(tb.vals.numel() == spmm.BLOCK ** 2 * nblk,
+                f"kernel 2's layout holds {tb.vals.numel()} values, not the "
+                f"{nblk} non-empty blocks' {spmm.BLOCK ** 2 * nblk}")
         csr, stored_nnz = common.symmetric_csr(Q, kpad)
         masked = (Q.pairs.run_col & 1).bool()
         require(bool(masked.any()) and not bool(masked.all()),
@@ -161,8 +166,8 @@ def kernel_phase(torch, path10k):
                     lambda: spmm.spmm_sym(Q.strips, X),
                     lambda: spmm.spmm_strips_plain(Q.strips, X)),
                 "spmm_tile": (
-                    lambda: spmm.spmm_symmetric(tr, tc, tl, X),
-                    lambda: spmm.spmm_symmetric_plain(tr, tc, tl, X)),
+                    lambda: spmm.spmm_symmetric(tb, X),
+                    lambda: spmm.spmm_symmetric_plain(tb, X)),
                 "spmm_paired": (
                     lambda: spmm.spmm_paired(Q.pairs, X),
                     lambda: spmm.spmm_paired_plain(Q.pairs, X)),

@@ -3,8 +3,8 @@
 Counterpart of ``dcora_tpu.core.pallas_spmm``.  Q is symmetric.  The TPU
 kernels multiply its upper-triangular 128 x 128 tiles on the matrix unit;
 on the pose graphs here ~98.6 % of a stored tile's entries are zero and the
-H100 kernels use no matrix unit, so two of the three read only the
-non-empty B x B sub-blocks (B = :data:`BLOCK`).  One kernel per TPU kernel:
+H100 kernels use no matrix unit, so all three read only the non-empty
+B x B sub-blocks (B = :data:`BLOCK`).  One kernel per TPU kernel:
 
   * :func:`spmm_sym` -- ``csrc/spmm_sym.cu``, replacing
     ``pallas_spmm.py:_grouped_kernel`` on the default path: owner-computes
@@ -14,8 +14,10 @@ non-empty B x B sub-blocks (B = :data:`BLOCK`).  One kernel per TPU kernel:
     backend and every tiled Lanczos matvec unless the paired packing is
     selected.
   * :func:`spmm_symmetric` -- ``csrc/spmm_tile.cu``, replacing
-    ``pallas_spmm.py:_spmm_kernel``: straight from the per-tile list of
-    dense tiles, each tile read once, accumulated with atomics.
+    ``pallas_spmm.py:_spmm_kernel``: the per-tile list compacted to each
+    tile's non-empty sub-blocks (:func:`compact_tiles`, :class:`TileBlocks`),
+    each block read once and applied both ways, the tile's sums added into
+    W with atomics.
   * :func:`spmm_paired` -- ``csrc/spmm_grouped.cu``, replacing
     ``pallas_spmm.py:_paired_kernel`` and the wide-layout
     ``_grouped_kernel``: the row-group packs of ``spmm_pack`` (one or two
@@ -146,9 +148,9 @@ _SOURCES = {
     "spmm_sym": ({s: [_P] * 5 + [_I, _I, _P]
                   for s in ("dcora_spmm_sym_f32", "dcora_spmm_sym_f64")},
                  ["blocks.cuh"]),
-    "spmm_tile": ({s: [_P] * 5 + [_I] * 3 + [_P]
+    "spmm_tile": ({s: [_P] * 7 + [_I] * 3 + [_P]
                    for s in ("dcora_spmm_tile_f32", "dcora_spmm_tile_f64")},
-                  ["tile_apply.cuh"]),
+                  ["blocks.cuh"]),
     "spmm_grouped": ({s: [_P] * 6 + [_I] * 3 + [_P]
                       for s in ("dcora_spmm_grouped_f32",
                                 "dcora_spmm_grouped_f64")},
@@ -237,9 +239,9 @@ def _launch(name: str, err: int):
 
 
 def to_device(blocks, dtype: torch.dtype, device):
-    """A StripCSR / PairBlocks of numpy arrays -> the same NamedTuple of
-    contiguous tensors on `device`: int32 indices, values at `dtype`
-    (a plain int field stays as it is)."""
+    """A StripCSR / TileBlocks / PairBlocks of numpy arrays -> the same
+    NamedTuple of contiguous tensors on `device`: int32 indices, values at
+    `dtype` (a plain int field stays as it is)."""
     def dev(a):
         if isinstance(a, int):
             return a
@@ -392,49 +394,123 @@ spmm_sym.launches = 0
 
 
 # --------------------------------------------------------------------------
-# Kernel 2: per-tile list, atomics (csrc/spmm_tile.cu)
+# Kernel 2: the per-tile list's non-empty sub-blocks (csrc/spmm_tile.cu)
 # --------------------------------------------------------------------------
 
 
-def spmm_symmetric_plain(rows: torch.Tensor, cols: torch.Tensor,
-                         tiles: torch.Tensor, X: torch.Tensor
+class TileBlocks(NamedTuple):
+    """The upper-triangular per-tile list (rows <= cols) cut down to each
+    tile's non-empty B x B sub-blocks, in tile order.
+
+    Tile t sits at tile row tile_row[t] and tile column tile_col[t] (it is
+    a diagonal tile when the two are equal: its transposed products are
+    skipped); its entries are tile_ptr[t]:tile_ptr[t+1].  Entry e is the
+    sub-block (a, b) of its T x T tile A, stored as ent_blk[e] = a * (T/B)
+    + b, with vals[e][kk][jj] = A[aB + kk, bB + jj]; a tile's entries are
+    sorted by b, then a.  min_kpad is one past the last scalar column any
+    entry reaches: X needs at least that many."""
+
+    tile_ptr: torch.Tensor  # i32[ntile + 1]
+    tile_row: torch.Tensor  # i32[ntile]
+    tile_col: torch.Tensor  # i32[ntile]
+    ent_blk: torch.Tensor   # i32[ne]
+    vals: torch.Tensor      # [ne, B, B]
+    T: int
+    min_kpad: int
+
+
+def compact_tiles(rows, cols, tiles) -> TileBlocks:
+    """The TileBlocks (numpy arrays, values at the tiles' dtype) of an
+    upper-triangular tile list.  Tiles and sub-blocks that hold no non-zero
+    are dropped, so are the zero tiles that pad the TPU kernel's list to
+    whole chunks.  A diagonal tile's blocks are kept as stored, not
+    symmetrised: the reference applies such a tile as X A only."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    tiles = np.asarray(tiles)
+    if np.any(rows > cols):
+        raise ValueError("tile list must be upper-triangular (row <= col)")
+    m, T = tiles.shape[0], tiles.shape[-1]
+    B = BLOCK
+    if tiles.shape != (m, T, T) or T % B:
+        raise ValueError(f"{tuple(tiles.shape)} tiles do not split into "
+                         f"{B}x{B} blocks")
+    TB = T // B
+    t, a, b = np.nonzero(nonempty_blocks(tiles))
+    order = np.lexsort((a, b, t))
+    t, a, b = t[order], a[order], b[order]
+    keep, count = np.unique(t, return_counts=True)
+    tile_ptr = np.zeros(len(keep) + 1, np.int64)
+    np.cumsum(count, out=tile_ptr[1:])
+    reach = np.maximum(rows[t] * T + a * B, cols[t] * T + b * B)
+    return TileBlocks(
+        tile_ptr.astype(np.int32), rows[keep].astype(np.int32),
+        cols[keep].astype(np.int32), (a * TB + b).astype(np.int32),
+        np.ascontiguousarray(tiles.reshape(m, TB, B, TB, B)[t, a, :, b, :]),
+        T, int(reach.max()) + B if len(t) else 0)
+
+
+def spmm_symmetric_plain(blocks: TileBlocks, X: torch.Tensor
                          ) -> torch.Tensor:
-    """Plain PyTorch version of spmm_symmetric (the same sum as
-    spmm_sym_plain; zero pad tiles add nothing)."""
-    return spmm_sym_plain(tiles, rows, cols, X)
+    """Plain PyTorch version of spmm_symmetric: per entry, index_select the
+    tile row's and the tile column's strips of X -> bmm with the block
+    (forward) and, off the diagonal, its transpose -> index_add_ into the
+    tile column's and the tile row's strips of W."""
+    tile_ptr, tile_row, tile_col, ent_blk, vals, T, _ = blocks
+    TB = T // BLOCK
+    tile = torch.repeat_interleave(
+        torch.arange(tile_row.shape[0], device=X.device),
+        (tile_ptr[1:] - tile_ptr[:-1]).long())
+    r, c = tile_row.long()[tile], tile_col.long()[tile]
+    blk = ent_blk.long()
+    src = r * TB + blk // TB          # strip of X[:, rT + aB]
+    dst = c * TB + blk % TB           # strip of X[:, cT + bB]
+    Xs = _strips_of(X)
+    Ws = torch.zeros_like(Xs)
+    Ws.index_add_(0, dst, torch.bmm(Xs.index_select(0, src), vals))
+    off = r != c
+    Ws.index_add_(0, src[off], torch.bmm(Xs.index_select(0, dst[off]),
+                                         vals[off].transpose(1, 2)))
+    return _from_strips(Ws)
 
 
-def spmm_symmetric(rows: torch.Tensor, cols: torch.Tensor,
-                   tiles: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
-    """W = X Q from the per-tile upper-triangular list (rows <= cols),
-    each tile read once.  Zero tiles at (0, 0) may pad the list.
+def spmm_symmetric(blocks: TileBlocks, X: torch.Tensor) -> torch.Tensor:
+    """W = X Q from the per-tile list's non-empty sub-blocks (TileBlocks,
+    compact_tiles), each block read once.
 
-    tiles [m, T, T] and X [r_pad, nt*T] share f32 or f64, any r_pad >= 1.
-    A CUDA X launches csrc/spmm_tile.cu (rows/cols contiguous int32 [m],
-    T = 128) or raises; a CPU X runs spmm_symmetric_plain.
+    vals [ne, B, B] (B = BLOCK) and X [r_pad, kpad] share f32 or f64, any
+    r_pad >= 1, kpad >= blocks.min_kpad.  A CUDA X launches
+    csrc/spmm_tile.cu (contiguous int32 indices, T = 128) or raises; a CPU X
+    runs spmm_symmetric_plain.
     """
-    if tiles.dim() != 3 or tiles.shape[1] != tiles.shape[2]:
-        raise ValueError(f"spmm_symmetric: tiles must be [m, T, T], got "
-                         f"{tuple(tiles.shape)}")
-    T = tiles.shape[-1]
-    _check_x("spmm_symmetric", X, tiles, T)
-    m = tiles.shape[0]
-    if rows.shape != (m,) or cols.shape != (m,):
-        raise ValueError(f"spmm_symmetric: rows {tuple(rows.shape)} and "
-                         f"cols {tuple(cols.shape)} must be ({m},)")
+    tile_ptr, tile_row, tile_col, ent_blk, vals, T, min_kpad = blocks
+    _check_blocks("spmm_symmetric", vals)
+    _check_x("spmm_symmetric", X, vals, BLOCK)
+    ntile = tile_row.shape[0]
+    if tile_ptr.shape != (ntile + 1,) or tile_col.shape != (ntile,) or \
+            ent_blk.shape != (vals.shape[0],):
+        raise ValueError(f"spmm_symmetric: tile_ptr {tuple(tile_ptr.shape)}, "
+                         f"tile_col {tuple(tile_col.shape)} and ent_blk "
+                         f"{tuple(ent_blk.shape)} do not index {ntile} tiles "
+                         f"and {vals.shape[0]} blocks")
+    if X.shape[1] < min_kpad:
+        raise ValueError(f"spmm_symmetric: the tiles reach column "
+                         f"{min_kpad}, X has {X.shape[1]}")
     if X.device.type == "cpu":
-        return spmm_symmetric_plain(rows, cols, tiles, X)
+        return spmm_symmetric_plain(blocks, X)
     if T != T_TILE:
         raise ValueError(f"spmm_symmetric: the kernel takes "
                          f"{T_TILE}x{T_TILE} tiles, got {T}x{T}")
-    _check_kernel("spmm_symmetric", X, tiles, rows=rows, cols=cols)
+    _check_kernel("spmm_symmetric", X, vals, tile_ptr=tile_ptr,
+                  tile_row=tile_row, tile_col=tile_col, ent_blk=ent_blk)
     r_pad, kpad = X.shape
     fn = _entry("spmm_tile", X)
     W = torch.empty_like(X)
     with torch.cuda.device(X.device):
         _launch("spmm_symmetric", fn(
-            rows.data_ptr(), cols.data_ptr(), tiles.data_ptr(),
-            X.data_ptr(), W.data_ptr(), m, kpad // T, r_pad, _stream(X)))
+            tile_ptr.data_ptr(), tile_row.data_ptr(), tile_col.data_ptr(),
+            ent_blk.data_ptr(), vals.data_ptr(), X.data_ptr(), W.data_ptr(),
+            ntile, kpad, r_pad, _stream(X)))
     spmm_symmetric.launches += 1
     return W
 

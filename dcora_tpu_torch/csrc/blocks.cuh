@@ -1,7 +1,7 @@
 // Device helpers shared by the sub-block SpMM kernels (spmm_sym.cu,
-// spmm_grouped.cu).  Both read Q as a list of its non-empty B x B
-// sub-blocks instead of dense 128 x 128 tiles: on the pose graphs of this
-// repository ~98.6 % of a stored tile's entries are zero.
+// spmm_tile.cu, spmm_grouped.cu).  All read Q as a list of its non-empty
+// B x B sub-blocks instead of dense 128 x 128 tiles: on the pose graphs of
+// this repository ~98.6 % of a stored tile's entries are zero.
 //
 // B is one compile-time constant, given to nvcc as -DDCORA_BLOCK
 // (core/spmm.py: BLOCK).  A warp owns B output columns and RB rows of W:

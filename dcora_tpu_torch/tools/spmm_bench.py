@@ -14,8 +14,8 @@ generated 10,648-pose grid) and one random X, it times
     never calls it;
   * kernel 1, ``spmm_sym`` (owner-computes over output strips of the
     non-empty B x B sub-blocks, B = ``spmm.BLOCK``);
-  * kernel 2, ``spmm_symmetric`` (the per-tile list of dense tiles,
-    atomics);
+  * kernel 2, ``spmm_symmetric`` (the per-tile list compacted to each
+    tile's non-empty sub-blocks, ``spmm.compact_tiles``, atomics);
   * kernel 3, ``spmm_paired`` (the row-group packs' non-empty sub-blocks,
     one launch) on the paired pack and on the single-row bucketed pack.
 
@@ -47,13 +47,21 @@ from dcora_tpu_torch.tools import common
 def padded_tile_list(Q: tiled.TiledQ, chunk: int = 8):
     """(rows i32, cols i32, tiles) of the stored upper tiles, padded to a
     multiple of `chunk` with zero tiles at (0, 0) as the TPU kernel's list
-    is (spmm_symmetric takes it as it is)."""
+    is (compact_tiles drops the pads)."""
     pad = -Q.tiles.shape[0] % chunk
     rows = torch.cat([Q.tile_rows, Q.tile_rows.new_zeros(pad)]).int()
     cols = torch.cat([Q.tile_cols, Q.tile_cols.new_zeros(pad)]).int()
     tiles = torch.cat([Q.tiles,
                        Q.tiles.new_zeros((pad,) + tuple(Q.tiles.shape[1:]))])
     return rows, cols, tiles
+
+
+def tile_blocks(Q: tiled.TiledQ) -> spmm.TileBlocks:
+    """Kernel 2's layout: spmm.compact_tiles of padded_tile_list(Q), on
+    Q's device at its dtype."""
+    lists = (a.cpu().numpy() for a in padded_tile_list(Q))
+    return spmm.to_device(spmm.compact_tiles(*lists), Q.tiles.dtype,
+                          Q.tiles.device)
 
 
 def _nbytes(*tensors) -> int:
@@ -68,7 +76,7 @@ def layouts(TP: tiled.TiledProblem, X: torch.Tensor):
     dt, dev = Q.tiles.dtype, Q.tiles.device
     trow, tcol = Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy()
     tiles_np = Q.tiles.cpu().numpy()
-    rows, cols, tl = padded_tile_list(Q)
+    tb = tile_blocks(Q)
     csr, _ = common.symmetric_csr(Q, TP.meta.kpad)
     Xt = X.t().contiguous()
     out = {
@@ -81,9 +89,8 @@ def layouts(TP: tiled.TiledProblem, X: torch.Tensor):
     }
     out[f"spmm_sym (kernel 1, strips B={spmm.BLOCK})"] = (
         lambda: spmm.spmm_sym(Q.strips, X), _nbytes(*Q.strips))
-    out["spmm_symmetric (kernel 2, per tile)"] = (
-        lambda: spmm.spmm_symmetric(rows, cols, tl, X),
-        _nbytes(rows, cols, tl))
+    out[f"spmm_symmetric (kernel 2, tiles B={spmm.BLOCK})"] = (
+        lambda: spmm.spmm_symmetric(tb, X), _nbytes(*tb))
     for name, packer in (("paired", spmm_pack.build_row_pairs_bucketed),
                          ("bucketed R=1",
                           spmm_pack.build_row_groups_bucketed)):
@@ -142,11 +149,15 @@ def run(path: str, rank: int = 5, dtype=torch.float32, verbose=True):
 
 def host_build_seconds(TP: tiled.TiledProblem) -> dict:
     """Host seconds of the numpy steps that make the sub-block layouts
-    from the stored tiles, at spmm.BLOCK: the strip CSR, the paired
-    packer and its compaction."""
+    from the stored tiles, at spmm.BLOCK: the strip CSR, the per-tile
+    compaction (of the padded list), the paired packer and its
+    compaction."""
     Q = TP.Q
     trow, tcol = Q.tile_rows.cpu().numpy(), Q.tile_cols.cpu().numpy()
     tiles = Q.tiles.cpu().numpy()
+    padded = [a.cpu().numpy() for a in padded_tile_list(Q)]
+    tc = time.perf_counter()
+    spmm.compact_tiles(*padded)
     t0 = time.perf_counter()
     spmm.build_output_csr(trow, tcol, tiles, TP.meta.nt)
     t1 = time.perf_counter()
@@ -155,7 +166,8 @@ def host_build_seconds(TP: tiled.TiledProblem) -> dict:
     t2 = time.perf_counter()
     spmm_pack.compact_buckets(bk)
     t3 = time.perf_counter()
-    return dict(strip_csr=t1 - t0, pair_packer=t2 - t1, compaction=t3 - t2)
+    return dict(strip_csr=t1 - t0, tile_compaction=t0 - tc,
+                pair_packer=t2 - t1, compaction=t3 - t2)
 
 
 def main(argv=None) -> int:

@@ -22,7 +22,7 @@ from dcora_tpu_torch.core import spmm, spmm_pack, tiled
 from dcora_tpu_torch.core.spmm import T_TILE
 from dcora_tpu_torch.core.graph import LocalGraph
 from dcora_tpu_torch.io import read_g2o_file
-from dcora_tpu_torch.tools.spmm_bench import padded_tile_list
+from dcora_tpu_torch.tools.spmm_bench import tile_blocks
 
 pytestmark = pytest.mark.cuda
 
@@ -114,18 +114,36 @@ def _rel_err(W, ref):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("r_pad,live", CASES)
 def test_tile_kernel_matches_plain_on_card(problem, dtype, r_pad, live):
+    """Kernel 2 on the padded per-tile list compacted to its non-empty
+    sub-blocks (diagonal and off-diagonal tiles), against its plain version
+    and the dense tiles' reference."""
     TP = _tiled(problem, dtype)
-    rows, cols, tiles = padded_tile_list(TP.Q)
-    assert rows.shape[0] % 8 == 0 and rows.shape[0] > TP.Q.tiles.shape[0]
+    Tb = tile_blocks(TP.Q)
+    diag = Tb.tile_row == Tb.tile_col
+    assert diag.any() and not diag.all()
+    assert Tb.tile_row.shape[0] == TP.Q.tiles.shape[0]  # the pads dropped
     X = _operand(TP, r_pad, live, dtype)
     before = spmm.spmm_symmetric.launches
-    W = spmm.spmm_symmetric(rows, cols, tiles, X)
+    W = spmm.spmm_symmetric(Tb, X)
     assert spmm.spmm_symmetric.launches == before + 1
-    ref = spmm.spmm_symmetric_plain(rows, cols, tiles, X)
+    plain = spmm.spmm_symmetric_plain(Tb, X)
+    ref = spmm.spmm_sym_plain(TP.Q.tiles, TP.Q.tile_rows, TP.Q.tile_cols, X)
     torch.cuda.synchronize()
     assert W.is_cuda and W.dtype == dtype and W.shape == X.shape
+    assert _rel_err(W, plain) <= RTOL[dtype]
     assert _rel_err(W, ref) <= RTOL[dtype]
     assert not W[live:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tile_layout_holds_no_dense_tile(problem, dtype):
+    """What kernel 2 reads on the card: the non-empty 4x4 blocks alone."""
+    TP = _tiled(problem, dtype)
+    Tb = tile_blocks(TP.Q)
+    nblk = int(spmm.nonempty_blocks(TP.Q.tiles.cpu().numpy()).sum())
+    assert Tb.vals.is_cuda and Tb.vals.dtype == dtype
+    assert Tb.vals.numel() == spmm.BLOCK ** 2 * nblk
+    assert Tb.vals.numel() < TP.Q.tiles.numel() / 10
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -179,9 +197,9 @@ def test_atomics_kernels_repeat_within_tolerance(problem, dtype):
     """Atomics give no fixed summation order: repeated launches need not
     agree bit for bit, but they agree to the kernels' tolerance."""
     TPp = _tiled(problem, dtype, pack="paired")
-    rows, cols, tiles = padded_tile_list(TPp.Q)
+    Tb = tile_blocks(TPp.Q)
     X = _operand(TPp, 8, 8, dtype)
-    for run in (lambda: spmm.spmm_symmetric(rows, cols, tiles, X),
+    for run in (lambda: spmm.spmm_symmetric(Tb, X),
                 lambda: tiled.apply_tiled(TPp, X)):
         W0 = run()
         for _ in range(4):
@@ -191,19 +209,20 @@ def test_atomics_kernels_repeat_within_tolerance(problem, dtype):
 def test_atomics_kernels_raise_on_what_they_do_not_take(problem):
     """A CUDA tensor launches the kernel or raises; it never falls back."""
     TP = _tiled(problem, torch.float64, pack="paired")
-    rows, cols, tiles = padded_tile_list(TP.Q)
+    Tb = tile_blocks(TP.Q)
     X = _operand(TP, 8, 8, torch.float64)
     Pb = TP.Q.pairs
     before = spmm.launch_counts()
     with pytest.raises(ValueError, match="int32"):
-        spmm.spmm_symmetric(rows.long(), cols, tiles, X)
+        spmm.spmm_symmetric(Tb._replace(tile_ptr=Tb.tile_ptr.long()), X)
     with pytest.raises(ValueError, match="contiguous"):
-        spmm.spmm_symmetric(rows, cols, tiles, X.t().contiguous().t())
+        spmm.spmm_symmetric(Tb, X.t().contiguous().t())
     with pytest.raises(TypeError):
-        spmm.spmm_symmetric(rows, cols, tiles, X.float())
+        spmm.spmm_symmetric(Tb, X.float())
     with pytest.raises(ValueError, match="128x128"):
-        spmm.spmm_symmetric(rows, cols, tiles[:, :32, :32].contiguous(),
-                            X[:, :32 * TP.meta.nt].contiguous())
+        spmm.spmm_symmetric(Tb._replace(T=32), X)
+    with pytest.raises(ValueError, match="reach column"):
+        spmm.spmm_symmetric(Tb, X[:, :-T_TILE].contiguous())
     with pytest.raises(ValueError, match="int32"):
         spmm.spmm_paired(Pb._replace(ent_col=Pb.ent_col.long()), X)
     with pytest.raises(ValueError, match="contiguous"):

@@ -8,10 +8,12 @@ same numpy inputs.
 * spmm_paired's plain version on the compacted packs agrees with the Pallas
   grouped / paired kernels in interpret mode (as tests/test_tiled.py runs
   them) on the same packs, at T = 32 and 128;
-* spmm_symmetric's plain version agrees with JAX's apply_tiled (XLA path);
-  the CUDA kernels themselves have no interpret mode and no JAX test
-  (tests/test_torch_spmm_cuda.py holds them against these plain versions
-  on the card);
+* spmm_symmetric's plain version, on the per-tile list compacted by
+  spmm.compact_tiles, agrees with JAX's apply_tiled (XLA path;
+  tests/test_torch_spmm_tiles.py holds it against the Pallas kernel in
+  interpret mode); the CUDA kernels themselves have no interpret mode and
+  no JAX test (tests/test_torch_spmm_cuda.py holds them against these
+  plain versions on the card);
 * a numpy walk of the packs' slots, with their mask rule (c == r1 only),
   reproduces the dense product, and the rule that also masks c == r2 does
   not (tests/test_torch_spmm_blocks.py walks the compacted sub-blocks).
@@ -218,8 +220,8 @@ def test_grouped_plain_matches_pallas_interpret(graph_tiles, G):
 @pytest.mark.parametrize("r_pad", [1, 8])
 def test_symmetric_plain_matches_jax_apply_tiled(dtype, r_pad):
     """spmm_symmetric (its plain version on the CPU) on the per-tile list,
-    padded to 8-tile chunks with zero tiles at (0, 0), against JAX's XLA
-    tile path."""
+    padded to 8-tile chunks with zero tiles at (0, 0) and compacted to its
+    non-empty sub-blocks, against JAX's XLA tile path."""
     rng = np.random.default_rng(3)
     gj, gt = build_graphs(random_graph_spec(rng, n=40, l=9, b=6))
     jdt = np.float32 if dtype == torch.float32 else np.float64
@@ -231,10 +233,13 @@ def test_symmetric_plain_matches_jax_apply_tiled(dtype, r_pad):
     rows = torch.cat([Q.tile_rows, Q.tile_rows.new_zeros(pad)]).int()
     cols = torch.cat([Q.tile_cols, Q.tile_cols.new_zeros(pad)]).int()
     tiles = torch.cat([Q.tiles, Q.tiles.new_zeros((pad, 32, 32))])
+    blocks = spmm.to_device(spmm.compact_tiles(rows, cols, tiles), dtype,
+                            "cpu")
+    assert blocks.tile_row.shape[0] == Q.tiles.shape[0]  # pads dropped
     X = rng.standard_normal((r_pad, TPt.meta.kpad))
     ref = jtiled.apply_tiled(TPj, jnp.asarray(X, jdt))
     before = spmm.spmm_symmetric.launches
-    out = spmm.spmm_symmetric(rows, cols, tiles, torch.as_tensor(X, dtype=dtype))
+    out = spmm.spmm_symmetric(blocks, torch.as_tensor(X, dtype=dtype))
     assert spmm.spmm_symmetric.launches == before  # the plain path
     assert out.dtype == dtype
     assert_close(out, ref, rtol=F64_TOL if dtype == torch.float64
@@ -361,15 +366,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     Pb = _compact(spmm_pack.build_row_pairs_bucketed(rows, cols, tiles, T=T),
                   torch.float64)
     X = torch.zeros((8, nt * T), dtype=torch.float64)
-    r, c = torch.as_tensor(rows), torch.as_tensor(cols)
-    t = torch.as_tensor(tiles)
+    Tb = spmm.to_device(spmm.compact_tiles(rows, cols, tiles), torch.float64,
+                        "cpu")
     before = spmm.launch_counts()
     with pytest.raises(TypeError):
-        spmm.spmm_symmetric(r, c, t, X.float())
+        spmm.spmm_symmetric(Tb, X.float())
     with pytest.raises(ValueError):
-        spmm.spmm_symmetric(r, c, t, X[:, :-1])
-    with pytest.raises(ValueError):
-        spmm.spmm_symmetric(r[:-1], c, t, X)
+        spmm.spmm_symmetric(Tb, X[:, :-1])
+    with pytest.raises(ValueError, match="do not index"):
+        spmm.spmm_symmetric(Tb._replace(tile_ptr=Tb.tile_ptr[:-1]), X)
+    with pytest.raises(ValueError, match=r"\[ne, B, B\]"):
+        spmm.spmm_symmetric(Tb._replace(vals=Tb.vals[:, :, :2]), X)
+    with pytest.raises(ValueError, match="upper-triangular"):
+        spmm.compact_tiles(cols, rows, tiles)
     with pytest.raises(TypeError):
         spmm.spmm_paired(Pb, X.float())
     with pytest.raises(ValueError, match="do not index"):
@@ -380,11 +389,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         spmm_pack.compact_buckets([])
     # a tensor on any device other than the CPU never takes the plain path
     with pytest.raises(ValueError, match="unsupported device"):
-        spmm.spmm_symmetric(r.to("meta"), c.to("meta"), t.to("meta"),
+        spmm.spmm_symmetric(spmm.to_device(Tb, torch.float64, "meta"),
                             X.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         spmm.spmm_paired(spmm.to_device(Pb, torch.float64, "meta"),
                          X.to("meta"))
-    spmm.spmm_symmetric(r, c, t, X)
+    spmm.spmm_symmetric(Tb, X)
     spmm.spmm_paired(Pb, X)
     assert spmm.launch_counts() == before  # the plain paths launch none

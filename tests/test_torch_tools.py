@@ -33,8 +33,9 @@ def test_spmm_bench_backends_agree(dtype):
                      else F32_ATOL)
     # the sub-block layouts read a small part of the dense tiles' bytes
     tile_bytes = backends["plain tile path"][1]
-    assert all(backends[k][1] < tile_bytes / 4 for k in backends
-               if "kernel 1" in k or "kernel 3" in k)
+    kernels = [k for k in backends if "kernel" in k]
+    assert [k.split(",")[0][-1] for k in kernels] == ["1", "2", "3", "3"]
+    assert all(backends[k][1] < tile_bytes / 4 for k in kernels)
     rows, cols, tiles = spmm_bench.padded_tile_list(TP.Q)
     assert rows.dtype == torch.int32 and rows.shape[0] % 8 == 0
     assert not tiles[TP.Q.tiles.shape[0]:].any()
