@@ -138,6 +138,19 @@ def from_pose_array(T: np.ndarray, l: int = 0, b: int = 0,  # noqa: E741
     return RAState(rot=t(T[:, :, :d]), sph=t(sph), trn=t(trn))
 
 
+def lift(X: RAState, Y_lift: torch.Tensor) -> RAState:
+    """Lift a rank-d state to rank r via X_lifted = Y_lift @ X.
+
+    Y_lift: [r, d] fixed Stiefel lifting matrix (reference: Agent.cpp:49-50,
+    512-517). In the block layout each column block is left-multiplied.
+    """
+    return RAState(
+        rot=torch.einsum("rd,nde->nre", Y_lift, X.rot),
+        sph=torch.einsum("rd,ld->lr", Y_lift, X.sph),
+        trn=torch.einsum("rd,td->tr", Y_lift, X.trn),
+    )
+
+
 def pad_rank(X: RAState, r_new: int) -> RAState:
     """Zero-pad the rank (row) dimension to r_new."""
     pad = r_new - X.r
@@ -159,3 +172,28 @@ def truncate_rank(X: RAState, r_new: int) -> RAState:
 def to_numpy(X: RAState) -> tuple:
     """(rot, sph, trn) as host float64 arrays."""
     return tuple(x.detach().cpu().numpy() for x in X)
+
+
+# --- host-side SE(d) helpers (numpy) -----------------------------------------
+
+
+def pose_identity(d: int) -> np.ndarray:
+    T = np.zeros((d, d + 1))
+    T[:, :d] = np.eye(d)
+    return T
+
+
+def pose_inverse(T: np.ndarray) -> np.ndarray:
+    d = T.shape[0]
+    out = np.zeros_like(T)
+    out[:, :d] = T[:, :d].T
+    out[:, d] = -T[:, :d].T @ T[:, d]
+    return out
+
+
+def pose_multiply(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    d = A.shape[0]
+    out = np.zeros_like(A)
+    out[:, :d] = A[:, :d] @ B[:, :d]
+    out[:, d] = A[:, :d] @ B[:, d] + A[:, d]
+    return out

@@ -95,11 +95,17 @@ def random_stiefel(n: int, r: int, d: int, generator: torch.Generator,
     return stiefel_project(A)
 
 
+def random_oblique(l: int, r: int, generator: torch.Generator,  # noqa: E741
+                   dtype=torch.float64, device="cpu") -> torch.Tensor:
+    """l random unit vectors [l, r] (normalized Gaussian rows)."""
+    return oblique_project(torch.randn((l, r), generator=generator,
+                                       dtype=dtype, device=device))
+
+
 def random_state(dims: ProblemDims, r: int, generator: torch.Generator,
                  dtype=torch.float64, device="cpu") -> RAState:
     rot = random_stiefel(dims.n, r, dims.d, generator, dtype, device)
-    sph = oblique_project(torch.randn((dims.l, r), generator=generator,
-                                      dtype=dtype, device=device))
+    sph = random_oblique(dims.l, r, generator, dtype, device)
     trn = torch.randn((dims.num_trans, r), generator=generator, dtype=dtype,
                       device=device)
     return RAState(rot=rot, sph=sph, trn=trn)

@@ -23,9 +23,11 @@ The JAX ``lax.while_loop``s become Python loops.  The tCG inner loop never
 waits for the device: its state updates are masked once it has converged,
 and the host learns of convergence through a non-blocking probe
 (:class:`_DoneProbe`), so it stops issuing iterations a few steps late at
-most, and those steps change nothing.  The outer loop reads one flag per
-iteration.  ``rtr_chunked`` (a TPU RPC-watchdog workaround), the
-one-accepted-step RBCD mode and the float32 tCG option are not ported yet.
+most, and those steps change nothing.  On the card the edge path's
+iterations replay a CUDA graph (:class:`TCGGraph`).  The outer loop reads
+one flag per iteration.  ``rtr_chunked`` (a TPU RPC-watchdog workaround),
+the one-accepted-step RBCD mode and the float32 tCG option are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -187,14 +189,16 @@ class _DoneProbe:
     On a CUDA device each posted flag is copied into pinned host memory
     behind an event; `finished()` reads only flags whose copy has already
     completed (Event.query does not wait), so the loop never stalls on the
-    device.  On the CPU the flag is read directly.
+    device until the host is `ring` posts ahead of it.  On the CPU the flag
+    is read directly.
     """
 
     RING = 64
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, ring: int = RING):
         self.cuda = device.type == "cuda"
         self.seen = False
+        self.RING = ring
         if self.cuda:
             self.host = torch.zeros(self.RING, dtype=torch.bool,
                                     pin_memory=True)
@@ -235,13 +239,135 @@ class TCGResult(NamedTuple):
     inner_iters: torch.Tensor
 
 
+class _TCGState(NamedTuple):
+    eta: object
+    Heta: object
+    r: object
+    z: object
+    d: object
+    rz: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor
+
+
+def _tcg_step(be, P, M, X, aux, radius, stop_tol, max_inner: int,
+              s: _TCGState) -> _TCGState:
+    """One Steihaug-Toint iteration.  After the iteration that converges
+    (boundary hit, negative curvature, a small residual or the max_inner-th
+    step) eta, Heta and the count are frozen by masking, so iterations
+    issued after it leave the result unchanged."""
+    eta, Heta, r, z, d, rz, it, done = s
+    Hd = _rhess(be, P, X, d, aux)
+    dHd = tvdot(d, Hd)
+    alpha = rz / torch.where(dHd == 0, torch.ones_like(dHd), dHd)
+    eta_next = taxpy(alpha, d, eta)
+    hit = (dHd <= 0) | (tnorm(eta_next) >= radius)
+    # largest tau >= 0 with ||eta + tau d|| = radius
+    dd = tvdot(d, d)
+    ed = tvdot(eta, d)
+    ee = tvdot(eta, eta)
+    disc = torch.clamp(ed * ed - dd * (ee - radius ** 2), min=0.0)
+    tau = (-ed + torch.sqrt(disc)) / torch.where(dd == 0,
+                                                 torch.ones_like(dd), dd)
+    eta_new = twhere(hit, taxpy(tau, d, eta), eta_next)
+    Heta_new = twhere(hit, taxpy(tau, Hd, Heta), taxpy(alpha, Hd, Heta))
+    r = taxpy(alpha, Hd, r)
+    z = be.precond(P, M, X, r)
+    rz_new = tvdot(r, z)
+    small = tnorm(r) <= stop_tol
+    beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
+    d = taxpy(beta, d, tscale(z, -1.0))
+    # masked commit: a converged solve keeps its eta, Heta and count
+    eta = twhere(done, eta, eta_new)
+    Heta = twhere(done, Heta, Heta_new)
+    it = it + (~done).to(torch.int32)
+    done = done | hit | small | (it >= max_inner)
+    return _TCGState(eta, Heta, r, z, d, rz_new, it, done)
+
+
+def _flatten(tree) -> list:
+    return [leaf for x in tree for leaf in _leaves(x)]
+
+
+def _unflatten(like, leaves) -> list:
+    out, i = [], 0
+    for x in like:
+        k = len(_leaves(x))
+        out.append(_rebuild(x, leaves[i:i + k]))
+        i += k
+    return out
+
+
+class TCGGraph:
+    """STEPS tCG iterations of the edge path captured once per RTR call as
+    a CUDA graph and replayed until the solve converges.
+
+    Issued from Python, one iteration on the range-aided edge path is ~200
+    small kernels whose host issue time exceeds their device time.  Every
+    update of an iteration is masked (_tcg_step), so the iterations need no
+    host decision and can be recorded once.  The graph reads its inputs
+    (X, the Weingarten terms, radius, the stopping tolerance) from static
+    buffers and writes the tCG state back into its own static buffers;
+    `load` copies an outer iteration's values in."""
+
+    STEPS = 4
+
+    def __init__(self, be, P, M, max_inner: int):
+        self.be, self.P, self.M, self.max_inner = be, P, M, max_inner
+        self.graph = None
+
+    def _capture(self, inputs, state):
+        self.inputs = [x.clone() for x in _flatten(inputs)]
+        self.state = [x.clone() for x in _flatten(state)]
+        X, *aux, radius, stop_tol = _unflatten(inputs, self.inputs)
+        aux = tuple(aux)
+
+        def body():
+            s = _TCGState(*_unflatten(state, self.state))
+            for _ in range(self.STEPS):
+                s = _tcg_step(self.be, self.P, self.M, X, aux, radius,
+                              stop_tol, self.max_inner, s)
+            for dst, src in zip(self.state, _flatten(s)):
+                dst.copy_(src)
+
+        self._record(body)
+
+    def _record(self, body):
+        dev = self.state[0].device
+        # warm up on a side stream before capture, as torch.cuda.graphs
+        # requires; `load` overwrites what the warm-up wrote
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            body()
+
+    def load(self, X, aux, radius, stop_tol, state: _TCGState):
+        inputs = (X, *aux, radius, stop_tol)
+        if self.graph is None:
+            self._capture(inputs, state)
+        for dst, src in zip(self.inputs + self.state,
+                            _flatten(inputs) + _flatten(state)):
+            dst.copy_(src)
+
+    def replay(self) -> torch.Tensor:
+        """STEPS iterations; returns the (static) convergence flag."""
+        self.graph.replay()
+        return self.state[-1]
+
+
 def truncated_cg(P, X, grad, egrad, M, radius, max_inner: int,
-                 kappa: float, theta: float, be=RA_BACKEND) -> TCGResult:
+                 kappa: float, theta: float, be=RA_BACKEND,
+                 graph: Optional[TCGGraph] = None) -> TCGResult:
     """Preconditioned Steihaug-Toint tCG for the trust-region subproblem.
 
-    After the iteration that converges (boundary hit, negative curvature or
-    a small residual) eta and Heta are frozen by masking, so iterations the
-    host issued before it saw the flag leave the result unchanged."""
+    Iterations are issued one by one, or, when `graph` is given, STEPS at a
+    time by replaying it; either way the host stops issuing them once it
+    sees the device-side convergence flag, a few iterations late at most,
+    and those change nothing (_tcg_step)."""
     zero = tmap(torch.zeros_like, grad)
     r = grad
     z = be.precond(P, M, X, r)
@@ -249,43 +375,29 @@ def truncated_cg(P, X, grad, egrad, M, radius, max_inner: int,
     r0_norm = tnorm(r)
     stop_tol = r0_norm * torch.clamp(r0_norm ** theta, max=kappa)
     aux = be.hess_setup(P, X, egrad)
-    eta, Heta = zero, zero
-    rz = tvdot(r, z)
     it = torch.zeros((), dtype=torch.int32, device=r0_norm.device)
     done = r0_norm < 1e-300
-    probe = _DoneProbe(r0_norm.device)
+    s = _TCGState(zero, zero, r, z, d, tvdot(r, z), it, done)
+    if graph is None:
+        probe = _DoneProbe(r0_norm.device)
+        probe.post(done)
+        for _ in range(max_inner):
+            if probe.finished():
+                break
+            s = _tcg_step(be, P, M, X, aux, radius, stop_tol, max_inner, s)
+            probe.post(s.done)
+        return TCGResult(eta=s.eta, Heta=s.Heta, inner_iters=s.it)
+    graph.load(X, aux, radius, stop_tol, s)
+    # two replays in flight: the device never waits for the host, and the
+    # host overshoots convergence by at most 2 * STEPS masked iterations
+    probe = _DoneProbe(r0_norm.device, ring=2)
     probe.post(done)
-    for _ in range(max_inner):
+    for _ in range(-(-max_inner // graph.STEPS)):
         if probe.finished():
             break
-        Hd = _rhess(be, P, X, d, aux)
-        dHd = tvdot(d, Hd)
-        alpha = rz / torch.where(dHd == 0, torch.ones_like(dHd), dHd)
-        eta_next = taxpy(alpha, d, eta)
-        hit = (dHd <= 0) | (tnorm(eta_next) >= radius)
-        # largest tau >= 0 with ||eta + tau d|| = radius
-        dd = tvdot(d, d)
-        ed = tvdot(eta, d)
-        ee = tvdot(eta, eta)
-        disc = torch.clamp(ed * ed - dd * (ee - radius ** 2), min=0.0)
-        tau = (-ed + torch.sqrt(disc)) / torch.where(dd == 0,
-                                                     torch.ones_like(dd), dd)
-        eta_new = twhere(hit, taxpy(tau, d, eta), eta_next)
-        Heta_new = twhere(hit, taxpy(tau, Hd, Heta), taxpy(alpha, Hd, Heta))
-        r = taxpy(alpha, Hd, r)
-        z = be.precond(P, M, X, r)
-        rz_new = tvdot(r, z)
-        small = tnorm(r) <= stop_tol
-        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-        d = taxpy(beta, d, tscale(z, -1.0))
-        rz = rz_new
-        # masked commit: a converged solve keeps its eta, Heta and count
-        eta = twhere(done, eta, eta_new)
-        Heta = twhere(done, Heta, Heta_new)
-        it = it + (~done).to(torch.int32)
-        done = done | hit | small
-        probe.post(done)
-    return TCGResult(eta=eta, Heta=Heta, inner_iters=it)
+        probe.post(graph.replay())
+    s = _TCGState(*_unflatten(s, [x.clone() for x in graph.state]))
+    return TCGResult(eta=s.eta, Heta=s.Heta, inner_iters=s.it)
 
 
 class RTRResult(NamedTuple):
@@ -318,6 +430,10 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         return W if G is None else tadd(W, G)
 
     eps = torch.finfo(lead.dtype).eps
+    # the edge path's tCG iterations replay a CUDA graph on the card; the
+    # flat backend's kernel wrappers count their launches and stay eager
+    graph = TCGGraph(be, P, M, cfg.max_inner) \
+        if lead.is_cuda and be is RA_BACKEND else None
     X, W = X0, be.applyQ(P, X0)
     gnorm = tnorm(be.tangent(P, X, egrad_of(W)))
     it = 0
@@ -328,7 +444,7 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         egrad = egrad_of(W)
         grad = be.tangent(P, X, egrad)
         res = truncated_cg(P, X, grad, egrad, M, radius, cfg.max_inner,
-                           cfg.kappa, cfg.theta, be=be)
+                           cfg.kappa, cfg.theta, be=be, graph=graph)
         Xtest = be.retract(P, X, res.eta)
         Wtest = be.applyQ(P, Xtest)
         ftest = f_of(Xtest, Wtest)

@@ -129,6 +129,9 @@ class TiledProblem:
     # _factor_btd
     btd_ltil: Optional[torch.Tensor] = None   # [nt, T, T] (L~_0 = 0)
     btd_sinv: Optional[torch.Tensor] = None   # [nt, T, T]
+    # the BTD solve captured as a CUDA graph per (r_pad, dtype), made at
+    # its first application on the card (BTDGraph)
+    btd_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -636,11 +639,86 @@ def _precondition_btd(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
     return Y.transpose(0, 1).reshape(r_pad, meta.kpad)
 
 
+def _btd_solve_into(Ltil: torch.Tensor, Sinv: torch.Tensor,
+                    V3: torch.Tensor, U: torch.Tensor, Wd: torch.Tensor,
+                    Y: torch.Tensor) -> None:
+    """_precondition_btd's recurrences written into preallocated buffers,
+    one fused product-and-subtract (addmm) per step: the op sequence the
+    CUDA graph of BTDGraph records.  V3, U, Wd, Y are [nt, r_pad, T]."""
+    nt = V3.shape[0]
+    U[0].copy_(V3[0])  # L~_0 = 0
+    for i in range(1, nt):
+        torch.addmm(V3[i], U[i - 1], Ltil[i].T, alpha=-1.0, out=U[i])
+    torch.bmm(U, Sinv, out=Wd)
+    Y[nt - 1].copy_(Wd[nt - 1])
+    for i in range(nt - 2, -1, -1):
+        torch.addmm(Wd[i], Y[i + 1], Ltil[i + 1], alpha=-1.0, out=Y[i])
+
+
+class BTDGraph:
+    """The block-tridiagonal solve of one TiledProblem at one (r_pad,
+    dtype), captured once as a CUDA graph and replayed per application.
+
+    The solve is 2 * nt dependent [r_pad, T] x [T, T] products (732 at
+    nt = 366): issued one by one from Python, each costs more host time
+    than device time.  A replay issues the whole sequence with one call.
+    The products are captured with cuBLASLt as the preferred BLAS library:
+    for these skinny float32 products the default cuBLAS heuristic picks a
+    128-wide tile kernel that takes ~20x longer than cuBLASLt's on an
+    NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+    Input and output are static buffers owned by the graph; a call copies
+    Vf in and returns a new tensor."""
+
+    def __init__(self, TP: TiledProblem, r_pad: int, dtype: torch.dtype):
+        meta, dev = TP.meta, TP.device
+        self.x = torch.zeros((r_pad, meta.kpad), dtype=dtype, device=dev)
+        bufs = [torch.zeros((meta.nt, r_pad, meta.T), dtype=dtype,
+                            device=dev) for _ in range(3)]
+        self.U, self.Wd, self.Y = bufs
+        Ltil, Sinv = TP.btd_ltil.to(dtype), TP.btd_sinv.to(dtype)
+        V3 = self.x.view(r_pad, meta.nt, meta.T).transpose(0, 1)
+        args = (Ltil, Sinv, V3, *bufs)
+        blas = torch.backends.cuda.preferred_blas_library()
+        torch.backends.cuda.preferred_blas_library("cublaslt")
+        try:
+            # warm up on a side stream (cuBLAS handles and workspaces)
+            # before capture, as torch.cuda.graphs requires
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                _btd_solve_into(*args)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                _btd_solve_into(*args)
+        finally:
+            torch.backends.cuda.preferred_blas_library(blas)
+        self._keep = (Ltil, Sinv)  # the graph reads these addresses
+
+    def __call__(self, Vf: torch.Tensor) -> torch.Tensor:
+        self.x.copy_(Vf)
+        self.graph.replay()
+        return self.Y.transpose(0, 1).reshape(self.x.shape)
+
+
+def precondition_btd_graph(TP: TiledProblem, Vf: torch.Tensor
+                           ) -> torch.Tensor:
+    """M^{-1} v on the card through TP's cached BTDGraph for Vf's shape and
+    dtype (captured at the first call)."""
+    key = (Vf.shape[0], Vf.dtype)
+    if key not in TP.btd_graphs:
+        TP.btd_graphs[key] = BTDGraph(TP, *key)
+    return TP.btd_graphs[key](Vf)
+
+
 def precondition_flat(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
     """Block-Jacobi solve in flat layout (cf. prob.apply_preconditioner):
-    block-tridiagonal with TP.btd_ltil, tile-granularity with TP.diag_inv,
-    per-pose (dh x dh) blocks otherwise."""
+    block-tridiagonal with TP.btd_ltil (the plain loop on the CPU, its CUDA
+    graph on the card), tile-granularity with TP.diag_inv, per-pose (dh x
+    dh) blocks otherwise."""
     if TP.btd_ltil is not None:
+        if Vf.is_cuda:
+            return precondition_btd_graph(TP, Vf)
         return _precondition_btd(TP, Vf)
     if TP.diag_inv is not None:
         return _precondition_tiles(TP, Vf)

@@ -16,26 +16,15 @@ import time
 from typing import Optional
 
 import numpy as np
-import torch
 
 from dcora_tpu_torch.core import lifted, problem as prob
 from dcora_tpu_torch.core.graph import LocalGraph
 from dcora_tpu_torch.core.init import chordal_initialization
 from dcora_tpu_torch.io import read_g2o_file
-from dcora_tpu_torch.solvers import solve_pgo
+from dcora_tpu_torch.solvers import resolve_device, solve_pgo
 from dcora_tpu_torch.staircase import StaircaseResult, riemannian_staircase
 from dcora_tpu_torch.types import ROptParameters
 from dcora_tpu_torch.utils.logger import Logger
-
-
-def resolve_device(device: str) -> torch.device:
-    """The named device, or an error when it is not available (the driver
-    never falls back to another device)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    return dev
 
 
 def run(g2o_path: str, certify: bool = False, log_directory: str = "",

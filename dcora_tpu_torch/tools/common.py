@@ -1,6 +1,7 @@
 """Helpers shared by the port's tools and chip_smoke.py: the card's identity,
-CUDA-event timing, the SpMM's bound and its library yardstick, and the
-default generated 10,648-pose grid.
+CUDA-event timing, the SpMM's and the BTD solve's bounds, the SpMM's
+library yardstick, the default generated 10,648-pose grid and the generated
+RA-SLAM sets.
 
 Every measurement here needs a CUDA device; :func:`require_cuda` refuses to
 go on without one (the tools never fall back to the CPU).
@@ -138,6 +139,38 @@ def spmm_bound_ms(stored_nnz: int, full_nnz: int, r_pad: int, kpad: int,
                                                             "operations")
 
 
+def load_graph(path: str, r: int):
+    """The single-robot graph of a .g2o file (PGO) or of a .pyfg file (the
+    global RA-SLAM graph of every robot's measurements, as the RA driver
+    builds it), at rank r."""
+    from dcora_tpu_torch.core.graph import LocalGraph
+    from dcora_tpu_torch.io import read_g2o_file, read_pyfg_file
+    from dcora_tpu_torch.io.remap import get_global_measurements
+    from dcora_tpu_torch.types import GraphType
+
+    if path.endswith(".pyfg"):
+        ds = read_pyfg_file(path)
+        g = LocalGraph(0, r, ds.dim, GraphType.RangeAidedSLAMGraph)
+        g.set_measurements(get_global_measurements(ds).relative_measurements)
+        return g
+    ds = read_g2o_file(path)
+    g = LocalGraph(0, r, ds.dim)
+    g.set_measurements(ds.pose_pose_measurements)
+    return g
+
+
+def q_stats(TP) -> dict:
+    """What a TiledProblem's Q holds: tile columns, stored upper tiles and
+    their non-zeros, and kernel 1's strip CSR (strips, non-empty sub-blocks,
+    MB of its values and indices at the tiles' dtype)."""
+    S = TP.Q.strips
+    return dict(nt=TP.meta.nt, k=TP.meta.k,
+                stored_tiles=int(TP.Q.tiles.shape[0]),
+                stored_nnz=int(torch.count_nonzero(TP.Q.tiles)),
+                strips=int(S.ptr.numel()) - 1, blocks=int(S.src.numel()),
+                strip_mb=sum(t.numel() * t.element_size() for t in S) / 1e6)
+
+
 def default_grid(directory: str) -> str:
     """Generate the 10,648-pose grid (generate_large_scale_g2o at
     target_poses=10_000, the certified slice's and the bench's default
@@ -146,3 +179,41 @@ def default_grid(directory: str) -> str:
 
     return datasets.generate_large_scale_g2o(
         os.path.join(directory, "grid10k.g2o"), target_poses=10_000)
+
+
+# the generated RA-SLAM sets of the port's RA cells (tests/data/
+# torch_port_ra_reference.json): five robots in parallel lanes, four
+# landmarks, a range to every aligned pose of the next robot and from every
+# landmark, rot / trans / range noise 0.01 / 0.01 / 0.01 (at 0.05 / 0.02 /
+# 0.02 the 500-pose set's staircase climbs to rank 11 and its first rank
+# alone outlasts the smoke run's time on the card: PERF.md).
+# poses_per_robot 100 is ra500, 1950 ra10k (9,750 poses, 7,820 ranges:
+# tiers.pyfg's size)
+RA_KW = dict(num_robots=5, num_landmarks=4, range_prob=1.0, rot_noise=0.01,
+             trans_noise=0.01, range_noise=0.01, seed=3)
+
+
+def ra_set(directory: str, poses_per_robot: int) -> str:
+    """Generate the RA-SLAM set with `poses_per_robot` poses per robot
+    (RA_KW) into `directory`; returns its path."""
+    from dcora_tpu_torch import datasets
+
+    return datasets.generate_ra_slam_pyfg(
+        os.path.join(directory, f"ra{5 * poses_per_robot}.pyfg"),
+        poses_per_robot=poses_per_robot, **RA_KW)
+
+
+def btd_bound_ms(nt: int, T: int, r_pad: int, dtype: torch.dtype,
+                 hbm_gbs: float) -> Tuple[float, str]:
+    """The least time one block-tridiagonal solve (tiled._precondition_btd)
+    could take on the card, and what sets it: the larger of its bytes (the
+    factors L~ and inv(S), [nt, T, T] each, and V read once, the result
+    written once) over the HBM rate, and its operations (2 * nt products
+    of [r_pad, T] by [T, T] in the substitutions and nt in the diagonal
+    solve, 2 * r_pad * T^2 each) over the peak FLOP/s outside the tensor
+    cores."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    bytes_ms = (2 * nt * T * T + 2 * r_pad * nt * T) * esize / (hbm_gbs * 1e6)
+    ops_ms = 3.0 * nt * 2.0 * r_pad * T * T / PEAK_FLOPS[dtype] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                            "operations")

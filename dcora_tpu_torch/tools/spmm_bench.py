@@ -1,10 +1,11 @@
 """Microbenchmark of the SpMM backends of W = X Q on one CUDA device.
 
-    python -m dcora_tpu_torch.tools.spmm_bench [file.g2o] [--rank 5]
-        [--dtype float32|float64] [--out result.json]
+    python -m dcora_tpu_torch.tools.spmm_bench [file.g2o|file.pyfg]
+        [--rank 5] [--dtype float32|float64] [--out result.json]
 
 Counterpart of ``tools/spmm_bench.py``.  On one graph (default: the
-generated 10,648-pose grid) and one random X, it times
+generated 10,648-pose grid; a .pyfg file gives the global range-aided
+graph, spheres and landmarks in Q) and one random X, it times
 
   * the plain tile path (``spmm_sym_plain``: index_select -> bmm ->
     index_add_ over the dense 128 x 128 tiles), whose result is the
@@ -19,7 +20,9 @@ generated 10,648-pose grid) and one random X, it times
   * kernel 3, ``spmm_paired`` (the row-group packs' non-empty sub-blocks,
     one launch) on the paired pack and on the single-row bucketed pack.
 
-For each row it prints ms per product (CUDA events around back-to-back
+It first reports what Q holds (``common.q_stats``: stored tiles and
+non-zeros, kernel 1's strips, sub-blocks and MB).  For each row it prints
+ms per product (CUDA events around back-to-back
 launches, median of 3 turns), the device ms per product (the kernels' own
 durations under torch.profiler, without the host's launch overhead), the MB
 of Q data the layout reads (values and indices), the error relative to
@@ -39,8 +42,6 @@ import numpy as np
 import torch
 
 from dcora_tpu_torch.core import spmm, spmm_pack, tiled
-from dcora_tpu_torch.core.graph import LocalGraph
-from dcora_tpu_torch.io import read_g2o_file
 from dcora_tpu_torch.tools import common
 
 
@@ -105,16 +106,15 @@ def run(path: str, rank: int = 5, dtype=torch.float32, verbose=True):
     """Time every backend on `path`'s tiles; returns the result dict."""
     common.require_cuda("spmm_bench")
     r_pad = -(-rank // 8) * 8
-    ds = read_g2o_file(path)
-    g = LocalGraph(0, rank, ds.dim)
-    g.set_measurements(ds.pose_pose_measurements)
+    g = common.load_graph(path, rank)
     TP = tiled.build_tiled(g.problem_data(device="cuda"), g.dims,
                            dtype=dtype, pack="bucketed")
     name = torch.cuda.get_device_name(0)
     res = dict(device=name, nvidia_smi=common.card(),
-               dataset=os.path.basename(path), n=g.dims.n,
-               nt=TP.meta.nt, tiles=int(TP.Q.tiles.shape[0]),
-               dtype=str(dtype).split(".")[-1], r_pad=r_pad, rows=[])
+               dataset=os.path.basename(path), n=g.dims.n, l=g.dims.l,
+               b=g.dims.b, tiles=int(TP.Q.tiles.shape[0]),
+               dtype=str(dtype).split(".")[-1], r_pad=r_pad,
+               q=common.q_stats(TP), rows=[])
     rng = np.random.default_rng(0)
     X = torch.as_tensor(rng.standard_normal((r_pad, TP.meta.kpad)),
                         dtype=dtype, device="cuda")
@@ -130,9 +130,9 @@ def run(path: str, rank: int = 5, dtype=torch.float32, verbose=True):
         stored_nnz, csr.values().numel(), r_pad, TP.meta.kpad, dtype, gbs)
     res["host_build_s"] = host_build_seconds(TP)
     if verbose:
-        print(f"{res['dataset']}: n={res['n']} nt={res['nt']} "
-              f"tiles={res['tiles']} {res['dtype']} r_pad={r_pad} on "
-              f"{res['nvidia_smi']}")
+        print(f"{res['dataset']}: n={res['n']} l={res['l']} b={res['b']} "
+              f"{res['dtype']} r_pad={r_pad} on {res['nvidia_smi']}; Q: "
+              f"{res['q']}")
         print(f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
               f"{stored_nnz} stored non-zeros, X and W once, at the data "
               f"sheet's {gbs:.0f} GB/s); host build s {res['host_build_s']}")
@@ -172,8 +172,9 @@ def host_build_seconds(TP: tiled.TiledProblem) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("g2o", nargs="?", default="",
-                    help="dataset (default: the generated 10,648-pose grid)")
+    ap.add_argument("path", nargs="?", default="",
+                    help=".g2o or .pyfg dataset (default: the generated "
+                    "10,648-pose grid)")
     ap.add_argument("--rank", type=int, default=5,
                     help="X has ceil(rank / 8) * 8 rows")
     ap.add_argument("--dtype", choices=("float32", "float64"),
@@ -182,7 +183,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     common.require_cuda("spmm_bench")
     with tempfile.TemporaryDirectory() as tmp:
-        path = args.g2o or common.default_grid(tmp)
+        path = args.path or common.default_grid(tmp)
         res = run(path, rank=args.rank, dtype=getattr(torch, args.dtype))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -2,6 +2,8 @@
 iterations on each backend from the same start give the same iterate and
 the same f."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -96,5 +98,39 @@ def test_truncated_cg_counts_and_freezes(case):
                                torch.tensor(radius, dtype=torch.float64),
                                40, 0.1, 1.0)
         assert int(rt.inner_iters) == int(rj.inner_iters)
+        assert_state_close(rt.eta, rj.eta)
+        assert_state_close(rt.Heta, rj.Heta)
+
+
+class _EagerGraph(trtr.TCGGraph):
+    """TCGGraph whose recorded body runs eagerly at each replay: its
+    bookkeeping (static buffers, STEPS iterations per replay, the masked
+    overshoot, reloading) on the CPU, where no CUDA graph exists."""
+
+    def _record(self, body):
+        self.graph = SimpleNamespace(replay=body)
+
+
+@pytest.mark.parametrize("max_inner,kappa", [(3, 1e-12), (6, 1e-12),
+                                             (40, 0.1)])
+def test_truncated_cg_replayed_steps(case, max_inner, kappa):
+    """tCG issued TCGGraph.STEPS iterations per replay, with one graph
+    reloaded for a second radius, against the JAX package's tCG: the
+    same count and step.  kappa 1e-12 runs to max_inner (3 and 6 are not
+    multiples of STEPS); kappa 0.1 stops on the residual first."""
+    Xj, Xt = case["Xj"], case["Xt"]
+    Pj, Pt = case["Pj"], case["Pt"]
+    egj = jprob.euclidean_gradient(Pj, Xj, Pj.prior_G)
+    gj = jrtr.RA_BACKEND.tangent(Pj, Xj, egj)
+    egt = convert.ra_state(egj)
+    gt = convert.ra_state(gj)
+    graph = _EagerGraph(trtr.RA_BACKEND, Pt, case["Mt"], max_inner)
+    for radius in (100.0, 0.05):
+        rj = jrtr.truncated_cg(Pj, Xj, gj, egj, case["Mj"], radius,
+                               max_inner, kappa, 1.0)
+        rt = trtr.truncated_cg(Pt, Xt, gt, egt, case["Mt"],
+                               torch.tensor(radius, dtype=torch.float64),
+                               max_inner, kappa, 1.0, graph=graph)
+        assert int(rt.inner_iters) == int(rj.inner_iters) <= max_inner
         assert_state_close(rt.eta, rj.eta)
         assert_state_close(rt.Heta, rj.Heta)
