@@ -483,8 +483,8 @@ class LocalGraph:
     def fixed_state(self, pose_dict: Dict[StateID, np.ndarray],
                     sphere_dict: Dict[StateID, np.ndarray],
                     landmark_dict: Dict[StateID, np.ndarray],
-                    r: Optional[int] = None):
-        """Assemble the fixed-slot RAState from neighbor caches.
+                    r: Optional[int] = None, device="cpu"):
+        """Assemble the fixed-slot RAState from neighbor caches, on `device`.
 
         Returns (RAState, all_present). Missing states are zero-filled and
         flagged (reference behaviour: skip optimization, Agent.cpp:1243-1249).
@@ -524,6 +524,7 @@ class LocalGraph:
         if c["n_fix_pose"] == 0 and c["n_fix_trans"] == 0 and \
                 c["n_fix_sphere"] == 0:
             return None, True
+
         def t(x):
             return torch.as_tensor(x, dtype=torch.float64, device=device)
 

@@ -64,6 +64,10 @@ class RAState(NamedTuple):
     def dtype(self) -> torch.dtype:
         return self.rot.dtype
 
+    def pose(self, i) -> torch.Tensor:
+        """Lifted pose i as [r, d+1] = [Y_i | p_i]."""
+        return torch.cat([self.rot[i], self.trn[i][:, None]], dim=1)
+
     # -- algebra -------------------------------------------------------------
     def __add__(self, other: "RAState") -> "RAState":
         return RAState(*(x + y for x, y in zip(self, other)))

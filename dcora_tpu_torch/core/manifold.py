@@ -32,7 +32,9 @@ def inv_sqrt_psd(G: torch.Tensor) -> torch.Tensor:
     """Batched inverse matrix square root of small SPD matrices via eigh."""
     w, U = torch.linalg.eigh(G)
     inv_sqrt_w = 1.0 / torch.sqrt(torch.clamp(w, min=1e-300))
-    return torch.einsum("...ij,...j,...kj->...ik", U, inv_sqrt_w, U)
+    # U diag(w^-1/2) U^T as one batched matmul (a three-operand einsum pays
+    # a contraction-path search on every call)
+    return (U * inv_sqrt_w[..., None, :]) @ U.transpose(-1, -2)
 
 
 def stiefel_project(A: torch.Tensor) -> torch.Tensor:

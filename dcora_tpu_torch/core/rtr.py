@@ -25,9 +25,14 @@ and the host learns of convergence through a non-blocking probe
 (:class:`_DoneProbe`), so it stops issuing iterations a few steps late at
 most, and those steps change nothing.  On the card the edge path's
 iterations replay a CUDA graph (:class:`TCGGraph`).  The outer loop reads
-one flag per iteration.  ``rtr_chunked`` (a TPU RPC-watchdog workaround),
-the one-accepted-step RBCD mode and the float32 tCG option are not ported
-yet.
+one flag per iteration.
+
+The one-accepted-step mode of RBCD (``RTRConfig.single_accepted_step``;
+QuadraticOptimizer.cpp:253-273) shrinks the radius by 4 after each try, up
+to ``max_rejections`` + 1 tries, as a host loop around the same tCG;
+``rgd_step`` is the agents' RGD alternative.  Not ported: ``rtr_chunked``
+(a TPU RPC-watchdog workaround), RSD (no agent's ``ROptMethod`` reaches
+it) and the float32 tCG option.
 """
 
 from __future__ import annotations
@@ -101,6 +106,9 @@ class RTRConfig:
     # reg = rho_regularization*eps*max(1,|f|) to numerator and denominator
     # drives rho -> 1 for noise-level steps.
     rho_regularization: float = 1e3
+    # one-accepted-step mode (RBCD): shrink radius /4 on rejection, <=10 tries
+    single_accepted_step: bool = False
+    max_rejections: int = 10
 
 
 # --------------------------------------------------------------------------
@@ -411,9 +419,13 @@ class RTRResult(NamedTuple):
 
 
 def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
-        radius0=None) -> RTRResult:
+        radius0=None, graph: Optional[TCGGraph] = None) -> RTRResult:
     """Riemannian trust region from X0 until gradnorm < cfg.gradnorm_tol or
-    cfg.max_outer outer iterations.  One host sync per outer iteration."""
+    cfg.max_outer outer iterations.  One host sync per outer iteration.
+
+    On the card the edge path's tCG replays `graph` (a TCGGraph over the
+    same P, M and cfg.max_inner, kept by a caller that solves the same
+    problem many times), or one captured for this call."""
     lead = _leaves(X0)[0]
     max_radius = cfg.initial_radius * cfg.max_radius_factor
     radius = torch.as_tensor(cfg.initial_radius if radius0 is None
@@ -432,14 +444,13 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
     eps = torch.finfo(lead.dtype).eps
     # the edge path's tCG iterations replay a CUDA graph on the card; the
     # flat backend's kernel wrappers count their launches and stay eager
-    graph = TCGGraph(be, P, M, cfg.max_inner) \
-        if lead.is_cuda and be is RA_BACKEND else None
-    X, W = X0, be.applyQ(P, X0)
-    gnorm = tnorm(be.tangent(P, X, egrad_of(W)))
-    it = 0
-    done = bool(gnorm < cfg.gradnorm_tol)
-    any_acc = done
-    while it < cfg.max_outer and not done:
+    if not (lead.is_cuda and be is RA_BACKEND):
+        graph = None
+    elif graph is None:
+        graph = TCGGraph(be, P, M, cfg.max_inner)
+
+    def try_step(X, W, radius):
+        """One trust-region step proposal."""
         fX = f_of(X, W)
         egrad = egrad_of(W)
         grad = be.tangent(P, X, egrad)
@@ -455,9 +466,32 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         rho = (fX - ftest + reg) / torch.where(
             den.abs() < 1e-300, torch.full_like(den, 1e-300), den)
         accept = (rho > cfg.rho_accept) & (ftest <= fX + reg)
-        X = twhere(accept, Xtest, X)
-        W = twhere(accept, Wtest, W)
         hit_boundary = tnorm(res.eta) >= 0.99 * radius
+        return (twhere(accept, Xtest, X), twhere(accept, Wtest, W), rho,
+                accept, hit_boundary)
+
+    X, W = X0, be.applyQ(P, X0)
+    gnorm = tnorm(be.tangent(P, X, egrad_of(W)))
+    it = 0
+    done = bool(gnorm < cfg.gradnorm_tol)
+    any_acc = done
+    if cfg.single_accepted_step:
+        # RBCD mode (QuadraticOptimizer.cpp:253-273): shrink the radius (/4)
+        # after every try until one step is accepted, at most
+        # max_rejections + 1 tries; skipped when already below tolerance
+        # (QuadraticOptimizer.cpp:54-56)
+        accepted = done
+        while it <= cfg.max_rejections and not accepted:
+            X, W, _, accept, _ = try_step(X, W, radius)
+            radius = radius / 4.0
+            it += 1
+            accepted = bool(accept)
+        return RTRResult(X=X, f_final=f_of(X, W),
+                         gradnorm_final=tnorm(be.tangent(P, X, egrad_of(W))),
+                         outer_iters=it, accepted=accepted or done,
+                         radius_final=radius)
+    while it < cfg.max_outer and not done:
+        X, W, rho, accept, hit_boundary = try_step(X, W, radius)
         radius = torch.where(
             rho < 0.25, radius / 4.0,
             torch.where(hit_boundary & (rho > 0.75),
@@ -470,3 +504,12 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
     return RTRResult(X=X, f_final=f_of(X, W), gradnorm_final=gnorm,
                      outer_iters=it, accepted=any_acc,
                      radius_final=radius)
+
+
+def rgd_step(P, G, M, X: RAState, stepsize: float) -> RAState:
+    """Single preconditioned Riemannian gradient step
+    (reference: QuadraticOptimizer.cpp:110-180)."""
+    grad = riemannian_gradient(P, X, G)
+    if M is not None:
+        grad = RA_BACKEND.precond(P, M, X, grad)
+    return retract(X, grad.scale(-stepsize))

@@ -45,7 +45,7 @@ def run(g2o_path: str, certify: bool = False, log_directory: str = "",
     if certify:
         g = LocalGraph(0, d + 2, d)
         g.set_measurements(ms)
-        T = chordal_initialization(ms)
+        T = chordal_initialization(ms, device=dev)
         t_init = time.time() - t0
         X0 = lifted.pad_rank(lifted.from_pose_array(T, device=dev), d + 2)
         res: StaircaseResult = riemannian_staircase(

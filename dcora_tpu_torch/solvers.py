@@ -1,23 +1,27 @@
 """Batch solvers: single-robot PGO and the mixed-precision RTR phases.
 
-Counterpart of the main-path part of ``dcora_tpu.solvers``
-(reference surface: DCORA_solver.cpp solvePGO).  The robust GNC solvers and
-the averaging functions are not ported yet.
+Counterpart of ``dcora_tpu.solvers`` (reference surface: DCORA_solver.cpp
+solvePGO, solveRobustPGO, the single and robust rotation, translation and
+pose averaging).  The averaging runs on the host in numpy, through the
+port's own rotation projection.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from dcora_tpu_torch.core import lifted, problem as prob, tiled
+from dcora_tpu_torch.core.device import resolve_device
 from dcora_tpu_torch.core.graph import LocalGraph
 from dcora_tpu_torch.core.init import chordal_initialization
 from dcora_tpu_torch.core.lifted import RAState
-from dcora_tpu_torch.core.manifold import project
+from dcora_tpu_torch.core.manifold import project, rotation_project
+from dcora_tpu_torch.core.robust import RobustCost
 from dcora_tpu_torch.core.rtr import (
     FLAT_BACKEND,
     RA_BACKEND,
@@ -27,29 +31,26 @@ from dcora_tpu_torch.core.rtr import (
     tnorm,
 )
 from dcora_tpu_torch.measurements import RelativePosePoseMeasurement
-from dcora_tpu_torch.types import GraphType, ROptParameters
+from dcora_tpu_torch.types import (
+    GraphType,
+    ROptParameters,
+    RobustCostParameters,
+    RobustCostType,
+)
 
 # below this size the tiled phases cost more than the f64 edge iterations
 # they save (the same threshold as the JAX package)
 FAST_PATH_MIN_POSES = 500
 
 
-def resolve_device(device) -> torch.device:
-    """The named device, or an error when it is not available (the port's
-    entry points never fall back to another device)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    return dev
-
-
-def rtr_config_from_params(params: ROptParameters) -> RTRConfig:
+def rtr_config_from_params(params: ROptParameters,
+                           single_step: bool = False) -> RTRConfig:
     return RTRConfig(
         gradnorm_tol=params.gradnorm_tol,
         max_outer=params.RTR_iterations,
         max_inner=params.RTR_tCG_iterations,
         initial_radius=params.RTR_initial_radius,
+        single_accepted_step=single_step,
     )
 
 
@@ -103,7 +104,7 @@ def _tile_preconditioner(g: LocalGraph, P: prob.ProblemData):
 
 def rtr_fast(g: LocalGraph, P: prob.ProblemData, M, X0: RAState,
              cfg: RTRConfig, G: Optional[RAState] = None, TP=None,
-             skip_coarse: bool = False):
+             skip_coarse: bool = False, stats: Optional[dict] = None):
     """Mixed-precision RTR: f32 tiles -> f64 tiles -> f64 edge path.
 
       1. flat RCM-tiled backend with f32 tiles;
@@ -118,6 +119,8 @@ def rtr_fast(g: LocalGraph, P: prob.ProblemData, M, X0: RAState,
     (and finishes problems above 150k edges on f64 tiles); none of that
     exists here: each phase is one call, run to tolerance or stall.
     Returns (RTRResult, TileCache); pass the cache back in to reuse tiles.
+    When `stats` is a dict, the host seconds of the tile builds are added
+    to its "build_s".
     """
     r = X0.r
     r_pad = max(8, -(-r // 8) * 8)
@@ -125,10 +128,18 @@ def rtr_fast(g: LocalGraph, P: prob.ProblemData, M, X0: RAState,
         TP = TileCache()
     tile_pc = _tile_preconditioner(g, P)
     reg = precond_reg(g, P) if tile_pc else 0.1
+
+    def build(dtype):
+        t0 = time.perf_counter()
+        out = tiled.build_tiled(P, g.dims, dtype=dtype, precond=M, reg=reg,
+                                tile_precond=tile_pc)
+        if stats is not None:
+            stats["build_s"] = stats.get("build_s", 0.0) + \
+                time.perf_counter() - t0
+        return out
+
     if TP.f32 is None:
-        TP.f32 = tiled.build_tiled(P, g.dims, dtype=torch.float32,
-                                   precond=M, reg=reg,
-                                   tile_precond=tile_pc)
+        TP.f32 = build(torch.float32)
 
     def drive_tiled(TPx, X_state, chunk):
         """Tiled RTR at TPx's dtype until tol or stall: after each chunk of
@@ -169,25 +180,31 @@ def rtr_fast(g: LocalGraph, P: prob.ProblemData, M, X0: RAState,
     if not skip_coarse and gn32 > cfg.gradnorm_tol \
             and gn0 >= 100.0 * cfg.gradnorm_tol:
         if TP.f64 is None:
-            TP.f64 = tiled.build_tiled(P, g.dims, dtype=torch.float64,
-                                       precond=M, reg=reg,
-                                       tile_precond=tile_pc)
+            TP.f64 = build(torch.float64)
         X_warm, _ = drive_tiled(TP.f64, X_warm, chunk=8)
     return rtr(P, G, M, X_warm, cfg), TP
 
 
 def solve_pgo(measurements: List[RelativePosePoseMeasurement],
               params: Optional[ROptParameters] = None,
-              T0: Optional[np.ndarray] = None, device="cuda") -> np.ndarray:
+              T0: Optional[np.ndarray] = None, device="cuda",
+              stats: Optional[dict] = None) -> np.ndarray:
     """Single-robot rank-d PGO (reference: DCORA_solver.cpp:304-330) on
     `device` (the card unless the caller asks for the CPU; raises when CUDA
     is absent).
 
-    Returns the optimized trajectory [n, d, d+1]."""
+    Returns the optimized trajectory [n, d, d+1].  When `stats` is a dict,
+    the host seconds of the chordal init ("init_s"), the tile builds
+    ("build_s") and the whole call ("total_s") are added to it."""
+    t_start = time.perf_counter()
     device = resolve_device(device)
     params = params or ROptParameters()
     d = measurements[0].t.shape[0]
-    T = T0 if T0 is not None else chordal_initialization(measurements)
+    T = T0 if T0 is not None else chordal_initialization(measurements,
+                                                         device=device)
+    if stats is not None:
+        stats["init_s"] = stats.get("init_s", 0.0) + \
+            time.perf_counter() - t_start
     g = build_pgo_graph(measurements, r=d)
     P = g.problem_data(device=device)
     M = make_preconditioner(g, P)
@@ -195,7 +212,7 @@ def solve_pgo(measurements: List[RelativePosePoseMeasurement],
     cfg = rtr_config_from_params(params)
     G = prob.linear_term(P, None, g.n, g.l, g.dims.num_trans)
     if g.n >= FAST_PATH_MIN_POSES:
-        res, _ = rtr_fast(g, P, M, X0, cfg, G=G)
+        res, _ = rtr_fast(g, P, M, X0, cfg, G=G, stats=stats)
     else:
         res = rtr(P, G if G is not None
                   else lifted.zeros(g.dims, d, device=device), M, X0, cfg)
@@ -203,17 +220,198 @@ def solve_pgo(measurements: List[RelativePosePoseMeasurement],
     out = np.zeros((g.n, d, d + 1))
     out[:, :, :d] = X.rot.cpu().numpy()
     out[:, :, d] = X.trn.cpu().numpy()
+    if stats is not None:
+        stats["total_s"] = stats.get("total_s", 0.0) + \
+            time.perf_counter() - t_start
     return out
+
+
+# --- averaging (reference: DCORA_solver.cpp:30-216) -------------------------
+
+
+def single_translation_averaging(tVec: List[np.ndarray],
+                                 tau: Optional[np.ndarray] = None
+                                 ) -> np.ndarray:
+    t = np.stack(tVec)
+    w = np.ones(len(tVec)) if tau is None else np.asarray(tau)
+    return (w[:, None] * t).sum(0) / w.sum()
+
+
+def single_rotation_averaging(RVec: List[np.ndarray],
+                              kappa: Optional[np.ndarray] = None
+                              ) -> np.ndarray:
+    R = np.stack(RVec)
+    w = np.ones(len(RVec)) if kappa is None else np.asarray(kappa)
+    M = (w[:, None, None] * R).sum(0)
+    return rotation_project(torch.as_tensor(M, dtype=torch.float64)).numpy()
+
+
+def single_pose_averaging(RVec, tVec, kappa=None, tau=None):
+    return (single_rotation_averaging(RVec, kappa),
+            single_translation_averaging(tVec, tau))
+
+
+def _gnc_averaging_loop(update_fn, residual_fn, n, barc):
+    """Shared GNC-TLS loop for robust averaging
+    (reference: DCORA_solver.cpp:76-216)."""
+    w_tol = 1e-8
+    weights = np.ones(n)
+    est = update_fn(weights)
+    rsq = residual_fn(est)
+    barc_sq = barc * barc
+    mu_init = min(barc_sq / (2 * rsq.max() - barc_sq), 1e-5)
+    if mu_init > 0:
+        cost = RobustCost(RobustCostParameters(
+            costType=RobustCostType.GNC_TLS, GNCBarc=barc,
+            GNCMaxNumIters=1000, GNCInitMu=mu_init))
+        for _ in range(cost.params.GNCMaxNumIters):
+            est = update_fn(weights)
+            rsq = residual_fn(est)
+            weights = cost.weight(np.sqrt(rsq))
+            if np.sum((weights < w_tol) | (weights > 1 - w_tol)) == n:
+                break
+            cost.update()
+    inliers = [i for i in range(n) if weights[i] > 1 - w_tol]
+    return est, inliers, weights
+
+
+def robust_single_rotation_averaging(RVec: List[np.ndarray],
+                                     kappa: Optional[np.ndarray] = None,
+                                     error_threshold: float = 1.0):
+    """GNC-TLS robust rotation averaging
+    (reference: DCORA_solver.cpp:76-134). Returns (ROpt, inlier_indices)."""
+    n = len(RVec)
+    kap = np.ones(n) if kappa is None else np.asarray(kappa)
+    R = np.stack(RVec)
+
+    def update(weights):
+        return single_rotation_averaging(RVec, kap * weights)
+
+    def residual(ROpt):
+        return kap * ((ROpt[None] - R) ** 2).sum(axis=(1, 2))
+
+    est, inliers, _ = _gnc_averaging_loop(update, residual, n,
+                                          error_threshold)
+    return est, inliers
+
+
+def robust_single_pose_averaging(RVec, tVec, kappa=None, tau=None,
+                                 error_threshold: float = 1.0):
+    """GNC-TLS robust pose averaging (reference: DCORA_solver.cpp:136-216).
+    Returns (ROpt, tOpt, inlier_indices)."""
+    n = len(RVec)
+    kap = 10000 * np.ones(n) if kappa is None else np.asarray(kappa)
+    ta = 100 * np.ones(n) if tau is None else np.asarray(tau)
+    R = np.stack(RVec)
+    t = np.stack(tVec)
+
+    def update(weights):
+        return single_pose_averaging(RVec, tVec, kap * weights, ta * weights)
+
+    def residual(est):
+        ROpt, tOpt = est
+        return (kap * ((ROpt[None] - R) ** 2).sum(axis=(1, 2))
+                + ta * ((tOpt[None] - t) ** 2).sum(axis=1))
+
+    est, inliers, _ = _gnc_averaging_loop(update, residual, n,
+                                          error_threshold)
+    return est[0], est[1], inliers
+
+
+def compute_measurement_error(m: RelativePosePoseMeasurement,
+                              R1, t1, R2, t2) -> float:
+    """kappa*||R1 R_m - R2||^2 + tau*||t2 - t1 - R1 t_m||^2
+    (reference: DCORA_utils.cpp:2095-2101)."""
+    rot_err = float(((R1 @ m.R - R2) ** 2).sum())
+    tr_err = float(((t2 - t1 - R1 @ m.t) ** 2).sum())
+    return m.kappa * rot_err + m.tau * tr_err
+
+
+@dataclasses.dataclass
+class SolveRobustPGOParams:
+    """reference: DCORA_solver.h solveRobustPGOParams."""
+
+    opt_params: ROptParameters = dataclasses.field(
+        default_factory=lambda: ROptParameters(
+            gradnorm_tol=1.0, RTR_iterations=20
+        )
+    )
+    robust_params: RobustCostParameters = dataclasses.field(
+        default_factory=RobustCostParameters
+    )
+    verbose: bool = False
+
+
+def solve_robust_pgo(measurements: List[RelativePosePoseMeasurement],
+                     params: Optional[SolveRobustPGOParams] = None,
+                     T0: Optional[np.ndarray] = None, device="cuda",
+                     stats: Optional[list] = None) -> np.ndarray:
+    """GNC outer loop around solve_pgo, mutating measurement weights in
+    place (reference: DCORA_solver.cpp:332-409).  Every stage rebuilds the
+    graph, the tiles and (without T0) the chordal init on `device`.  When
+    `stats` is a list, one solve_pgo stats dict per stage is appended."""
+    device = resolve_device(device)
+    params = params or SolveRobustPGOParams()
+    w_tol = 1e-8
+
+    def stage():
+        st = None if stats is None else {}
+        T = solve_pgo(measurements, params.opt_params, T0, device=device,
+                      stats=st)
+        if stats is not None:
+            stats.append(st)
+        return T
+
+    def residuals(T):
+        return np.array([compute_measurement_error(
+            m, T[m.p1, :, :-1], T[m.p1, :, -1], T[m.p2, :, :-1],
+            T[m.p2, :, -1]) for m in measurements])
+
+    T = stage()
+    for m in measurements:
+        m.weight = 1.0
+    rsq = residuals(T)
+    barc_sq = params.robust_params.GNCBarc ** 2
+    mu_init = barc_sq / (2 * rsq.max() - barc_sq)
+    if mu_init > 0:
+        cost = RobustCost(dataclasses.replace(
+            params.robust_params, GNCInitMu=mu_init,
+            costType=RobustCostType.GNC_TLS))
+        for it in range(cost.params.GNCMaxNumIters):
+            T = stage()
+            rsq = residuals(T)
+            num_undecided = 0
+            for i, m in enumerate(measurements):
+                if m.fixedWeight:
+                    continue
+                m.weight = float(cost.weight(np.sqrt(rsq[i])))
+                if w_tol <= m.weight <= 1 - w_tol:
+                    num_undecided += 1
+            if params.verbose:
+                print(f"[solve_robust_pgo] iter {it}: "
+                      f"{num_undecided} undecided")
+            if num_undecided == 0:
+                break
+            cost.update()
+    return stage()
 
 
 __all__ = [
     "FAST_PATH_MIN_POSES",
+    "SolveRobustPGOParams",
     "TileCache",
     "build_pgo_graph",
+    "compute_measurement_error",
     "make_preconditioner",
     "precond_reg",
     "resolve_device",
+    "robust_single_pose_averaging",
+    "robust_single_rotation_averaging",
     "rtr_config_from_params",
     "rtr_fast",
+    "single_pose_averaging",
+    "single_rotation_averaging",
+    "single_translation_averaging",
     "solve_pgo",
+    "solve_robust_pgo",
 ]

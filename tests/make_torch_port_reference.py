@@ -1,4 +1,5 @@
-"""Write tests/data/torch_port_{pgo,ra}_reference.json from the JAX package.
+"""Write tests/data/torch_port_{pgo,ra,robust}_reference.json from the JAX
+package.
 
 The PyTorch port (dcora_tpu_torch) is held to the certified rank and f* that
 the JAX reference reaches on the same generated pose graphs and RA-SLAM
@@ -10,7 +11,10 @@ the reference values once, on the CPU:
 Each entry names its generator call, so the consumer (chip_smoke.py)
 regenerates a bit-identical file from the same seed, and records its CPU
 seconds.  The 10,648-pose grid takes roughly twelve minutes on a CPU and
-the 500-pose RA set about seven; run them in the background.
+the 500-pose RA set about seven; run them in the background.  The robust
+and multi-robot cases (gnc2500, gnc2500_dist, gnc2500_agent, mr_smallGrid3D,
+mr_ra500, mr_ra500_nl) go to torch_port_robust_reference.json with the lifting matrices
+the JAX agents draw from jax.random, which the port takes as inputs.
 """
 
 from __future__ import annotations
@@ -27,9 +31,28 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 
 from dcora_tpu_torch.tools.common import RA_KW  # noqa: E402
+from dcora_tpu_torch.tools.robust_bench import (  # noqa: E402
+    DIST_KW,
+    DIST_ROBUST,
+    GNC_CORRUPT,
+    GNC_GRID,
+)
+
+# the cuts of the multi-robot RA runs (solve_mr_ra): at r_max 4 DCORA
+# optimizes rank 3 only (``while r < r_max``)
+MR_RA_CUT = dict(num_iters=100, r_max=4)
+MR_RA_NL_CUT = dict(num_iters=200, r_max=4)
+# the cut of the distributed GNC: RBCD rounds per rank (the JAX tool runs
+# 12,000, and needed ~84,000 rounds in all on sphere2500), r_max (the
+# tool's 10) and the inner budget of a weight update (the tool's 150), so
+# that the first weight update runs at round 30 (five times the inner
+# budget), while the two engines' iterates still agree to ~1e-13: on the
+# corrupted grid the RBCD's discrete decisions part them from round 33 on
+DIST_CUT = dict(rounds_per_rank=32, r_max=5, robust_inner_iters=6)
 
 OUT = os.path.join(HERE, "data", "torch_port_pgo_reference.json")
 OUT_RA = os.path.join(HERE, "data", "torch_port_ra_reference.json")
+OUT_ROBUST = os.path.join(HERE, "data", "torch_port_robust_reference.json")
 
 # name -> (generator function name, keyword arguments)
 CASES = {
@@ -39,7 +62,21 @@ CASES = {
     "grid10k": ("generate_large_scale_g2o", dict(target_poses=10_000)),
     "ra500": ("generate_ra_slam_pyfg", dict(RA_KW, poses_per_robot=100)),
     "ra10k": ("generate_ra_slam_pyfg", dict(RA_KW, poses_per_robot=1950)),
+    # robust and multi-robot (OUT_ROBUST)
+    "gnc2500": ("generate_grid_g2o", dict(GNC_GRID, shape=[10, 10, 25])),
+    "gnc2500_dist": ("generate_grid_g2o", dict(GNC_GRID, shape=[10, 10, 25])),
+    "gnc2500_agent": ("generate_grid_g2o",
+                      dict(GNC_GRID, shape=[10, 10, 25])),
+    "mr_smallGrid3D": ("generate_grid_g2o",
+                       dict(shape=[5, 5, 5], rot_noise=0.05,
+                            trans_noise=0.02, seed=12)),
+    "mr_ra500": ("generate_ra_slam_pyfg", dict(RA_KW, poses_per_robot=100)),
+    "mr_ra500_nl": ("generate_ra_slam_pyfg",
+                    dict(RA_KW, poses_per_robot=100, num_landmarks=0)),
 }
+ROBUST = ("gnc2500", "gnc2500_dist", "gnc2500_agent", "mr_smallGrid3D",
+          "mr_ra500", "mr_ra500_nl")
+LIFT_RANKS = range(3, 13)  # the lifting matrices recorded (d = 3)
 RA_R_MAX = 20
 RA_ETA = 1e-4  # min_eig_tol of single_robot_raslam.run and the witness
 
@@ -94,6 +131,146 @@ def solve_ra(path: str):
                 r_max=RA_R_MAX, eta=RA_ETA)
 
 
+def _classes(weights, outliers):
+    from dcora_tpu_torch.tools.robust_bench import classification
+
+    return classification(weights, outliers)
+
+
+def solve_gnc(path: str):
+    """solveRobustPGO on the corrupted set at the parameters of
+    dcora_tpu.drivers.single_robot_gnc.run, and the JAX verifier on the
+    clean problem at its trajectory."""
+    from dcora_tpu import datasets
+    from dcora_tpu.core import lifted
+    from dcora_tpu.io import read_g2o_file
+    from dcora_tpu.solvers import SolveRobustPGOParams, solve_robust_pgo
+    from dcora_tpu.types import (ROptParameters, RobustCostParameters,
+                                 RobustCostType)
+    from dcora_tpu.verification import verify_solution
+
+    ds = read_g2o_file(path)
+    clean = ds.pose_pose_measurements
+    corrupted, outliers = datasets.corrupt_with_outliers(clean,
+                                                         **GNC_CORRUPT)
+    T = solve_robust_pgo(corrupted, SolveRobustPGOParams(
+        opt_params=ROptParameters(gradnorm_tol=1e-2, RTR_iterations=50),
+        robust_params=RobustCostParameters(
+            costType=RobustCostType.GNC_TLS)))
+    weights = {(m.p1, m.p2): m.weight for m in corrupted
+               if not m.fixedWeight}
+    X = lifted.from_pose_array(T)
+    weighted = verify_solution(corrupted, X, ds.dim, eta=1e-3)
+    for m in clean:
+        m.weight = 1.0
+    rep = verify_solution(clean, X, ds.dim, eta=1e-3)
+    return dict(n=ds.num_poses, edges=len(clean), outliers=len(outliers),
+                rejected=sorted([list(k) for k, w in weights.items()
+                                 if w < 1e-8]),
+                weights={f"{k[0]},{k[1]}": float(w)
+                         for k, w in sorted(weights.items())},
+                f_weighted=float(weighted["f_indep"]),
+                gradnorm_weighted=float(weighted["gradnorm_indep"]),
+                classification=_classes(weights, outliers),
+                f_on_clean=float(rep["f_indep"]),
+                gradnorm_on_clean=float(rep["gradnorm_indep"]),
+                certified_on_clean=bool(rep["certified_indep"]))
+
+
+def solve_gnc_dist(path: str):
+    """dcora_tpu.drivers.multi_robot_pgo.run with GNC-TLS at the JAX tool's
+    parameters, cut to DIST_CUT."""
+    from dcora_tpu import datasets
+    from dcora_tpu.drivers.multi_robot_pgo import run
+    from dcora_tpu.io import read_g2o_file
+    from dcora_tpu.types import (InitializationMethod, RobustCostParameters,
+                                 RobustCostType)
+
+    ds = read_g2o_file(path)
+    corrupted, outliers = datasets.corrupt_with_outliers(
+        ds.pose_pose_measurements, **GNC_CORRUPT)
+    cpath = datasets.write_g2o(path + ".corrupted.g2o", corrupted, ds.dim)
+    res = run(5, cpath, num_iters=DIST_CUT["rounds_per_rank"],
+              init_method=InitializationMethod.Chordal,
+              robust_cost_params=RobustCostParameters(
+                  costType=RobustCostType.GNC_TLS, **DIST_ROBUST),
+              **dict(DIST_KW, r_max=DIST_CUT["r_max"],
+                     robust_inner_iters=DIST_CUT["robust_inner_iters"]))
+    return dict(DIST_CUT, certified=bool(res.certified),
+                final_rank=int(res.final_rank),
+                total_iters=int(res.total_iters),
+                rounds=len(res.cost_trace),
+                final_cost=float(res.cost_trace[-1]),
+                cost_trace=[float(c) for c in res.cost_trace],
+                weights={f"{k[0]},{k[1]}": float(w)
+                         for k, w in sorted(res.weights.items())},
+                classification=_classes(res.weights, outliers))
+
+
+def solve_gnc_agent(path: str):
+    """One agent's GNC-TLS local initialization (dcora_tpu.agent,
+    Agent.cpp:379-418) on robot 0's 500-pose block of the corrupted set."""
+    from dcora_tpu import datasets
+    from dcora_tpu.agent import Agent
+    from dcora_tpu.drivers.multi_robot_pgo import partition_measurements
+    from dcora_tpu.io import read_g2o_file
+    from dcora_tpu.types import AgentParameters, InitializationMethod
+
+    ds = read_g2o_file(path)
+    corrupted, _ = datasets.corrupt_with_outliers(ds.pose_pose_measurements,
+                                                  **GNC_CORRUPT)
+    odo, priv, shared, _ = partition_measurements(corrupted, ds.num_poses, 5)
+    a = Agent(0, AgentParameters(
+        d=3, r=5, robotIDs=frozenset(range(5)),
+        localInitializationMethod=InitializationMethod.GNC_TLS))
+    a.set_measurements(odo[0] + priv[0] + shared[0])
+    a.initialize()
+    T = a.trajectory_local_init
+    return dict(n=a.num_poses,
+                loop_closures=len(priv[0]),
+                rejected=sorted([m.p1, m.p2] for m in priv[0]
+                                if m.weight < 1e-8),
+                T_sum=float(np.abs(T).sum()))
+
+
+def solve_mr(path: str):
+    """dcora_tpu.drivers.multi_robot_pgo.run, 5 robots, Chordal init, the
+    driver's defaults otherwise."""
+    from dcora_tpu.drivers.multi_robot_pgo import run
+    from dcora_tpu.types import InitializationMethod
+
+    res = run(5, path, init_method=InitializationMethod.Chordal)
+    return dict(robots=5, certified=bool(res.certified),
+                rank=int(res.final_rank), total_iters=int(res.total_iters),
+                rounds=len(res.cost_trace), f=float(res.cost_trace[-1]),
+                final_theta=res.final_theta)
+
+
+def solve_mr_ra(path: str, cut=MR_RA_CUT):
+    """dcora_tpu.drivers.multi_robot_raslam.run at its defaults but for
+    the cut.  On mr_ra500 (MR_RA_CUT) no robot's block is ever optimized
+    (every robot ranges to the landmarks, whose states the map agent never
+    shares: the driver gives it no measurements), so the run would climb to
+    r_max = 100 at its initial cost.  mr_ra500_nl (MR_RA_NL_CUT) has no
+    landmarks, only the ranges between robots, so every block optimizes."""
+    from dcora_tpu.drivers.multi_robot_raslam import run
+
+    res = run(path, **cut)
+    return dict(cut, certified=bool(res.certified),
+                cost_trace=[float(c) for c in res.cost_trace],
+                rank=int(res.final_rank),
+                total_iters=int(res.total_iters),
+                rounds=len(res.cost_trace), f=float(res.cost_trace[-1]),
+                gradnorm=float(res.gradnorm_trace[-1]),
+                final_theta=res.final_theta)
+
+
+SOLVERS = {"gnc2500": solve_gnc, "gnc2500_dist": solve_gnc_dist,
+           "gnc2500_agent": solve_gnc_agent, "mr_smallGrid3D": solve_mr,
+           "mr_ra500": solve_mr_ra,
+           "mr_ra500_nl": lambda path: solve_mr_ra(path, MR_RA_NL_CUT)}
+
+
 def main(names=None):
     import dcora_tpu  # noqa: F401  (x64 on)
     from dcora_tpu import datasets
@@ -108,17 +285,28 @@ def main(names=None):
                 call["shape"] = tuple(call["shape"])
             getattr(datasets, gen)(path, **call)
             t0 = time.time()
-            rec = (solve_ra if ra else solve)(path)
+            if name in ROBUST:
+                rec, dest = SOLVERS[name](path), OUT_ROBUST
+            else:
+                rec = (solve_ra if ra else solve)(path)
+                dest = OUT_RA if ra else OUT
             rec["generator"] = gen
             rec["kwargs"] = kw
             rec["seconds"] = round(time.time() - t0, 1)
-            print(name, rec, flush=True)
-            dest = OUT_RA if ra else OUT
+            print(name, {k: v for k, v in rec.items()
+                         if k not in ("weights", "rejected", "cost_trace")},
+                  flush=True)
             out = {}
             if os.path.exists(dest):  # re-read: another run may have written
                 with open(dest) as fh:
                     out = json.load(fh)
             out[name] = rec
+            if dest == OUT_ROBUST:
+                from dcora_tpu.core.manifold import fixed_lifting_matrix
+
+                out["lifting_matrices"] = {
+                    str(r): np.asarray(fixed_lifting_matrix(r, 3)).tolist()
+                    for r in LIFT_RANKS}
             os.makedirs(os.path.dirname(dest), exist_ok=True)
             with open(dest, "w") as fh:
                 json.dump(out, fh, indent=1, sort_keys=True)
