@@ -51,7 +51,20 @@ launch counts set to 0 just before it and read just after:
     distributed GNC on gnc2500 through its first weight update, held to
     JAX's costs and weights; DCORA at JAX's cuts on ra500 (no block
     optimizes there) and on ra500_nl (ra500 without its landmarks, where
-    every block optimizes), held to JAX's cost per round.
+    every block optimizes), held to JAX's cost per round;
+  * the parallel scaling mode (tests/data/
+    torch_port_parallel_reference.json): synchronous-parallel RBCD through
+    ``drivers.parallel_pgo.run`` on the 10,648-pose grid in 8 agents (edge
+    path and f64 tiles held to JAX's cost per round, then the driver's
+    default f32 tiles timed, every batched tile product one launch of
+    kernel 1 for all agents), 20 of its rounds under the profiler, kernel 1
+    on the 8 agents' stacked strips against its plain version and the
+    agents' own launches, ``drivers.parallel_raslam.run`` on ra500_nl and
+    on ra10k_nl (ra10k without landmarks; the parallel RA mode of both
+    engines cannot run a set with landmarks, and ra500 must raise JAX's
+    KeyError), the round inside a one-rank NCCL group (bitwise the local
+    round), the edge-sharded certificate (``parallel.certify``) against
+    the central one, and ``tools.scaling_bench`` over 1-16 agents.
 
 Before the RA solves the kernel phase also holds the strip kernel against
 its plain version on the ra10k Q, beside ``torch.sparse.mm`` and the bound;
@@ -141,6 +154,40 @@ MR_RA_F_RTOL = 1e-6
 # the costs part from JAX's from round 33 on when no update intervenes
 DIST_RTOL = 1e-8
 DIST_W_RTOL = 1e-6
+PAR_REFERENCE = os.path.join(HERE, "tests", "data",
+                             "torch_port_parallel_reference.json")
+# the synchronous-parallel RBCD's central cost after every round against
+# JAX's, at float64 (edge path and f64 tiles).  On a CPU the port agrees
+# to 8.1e-14 (edge) and 1.8e-11 (f64 tiles) over ra500_nl's 30 rounds,
+# where the parallel RA rounds oscillate and amplify a difference ~10x
+# every few rounds
+PAR_RTOL = 1e-8
+# par_grid10k after its first round: from round 2 on the agents' tCG runs
+# long on ill-conditioned blocks and carries a summation order's rounding
+# into the iterate at ~1e-4 of its size, in either engine: JAX's own
+# vmapped round 2 differs from the same agents updated one by one by up
+# to 2.3e-3 of max|X| ("jax_alone_round2_rel" in the reference), and the
+# port on a CPU differs from JAX's costs by up to 6.1e-5 over 30 rounds
+# ("port_cpu_rel").  Round 1 is held to PAR_RTOL, every round to this
+PAR_GRID_RTOL = 5e-4
+# the driver's default, float32 tiles, against the f64-tile rounds on the
+# card over the first 30 rounds of par_grid10k (f32 rounding moves the
+# accepted steps: 5.4e-4 on one H100 80GB HBM3 at 700 W, PERF.md)
+PAR_F32_RTOL = 5e-3
+# the sharded certificate's lambda_min against the central one at
+# DC2-PGO's certified optimum, relative to the largest-magnitude
+# eigenvalue of S (the spectrum's scale): there lambda_min is ~0, and each
+# Lanczos run stops when a sweep gains less than 1e-9 of that scale (the
+# two estimates were 1.5e-5 apart, 7.1e-10 of that scale, on one H100
+# 80GB HBM3 at 700 W)
+PAR_EIG_TOL = 1e-6
+# the f32 rounds' largest rise of the central cost from one round to the
+# next, relative: their steps are accepted on the f32 tile cost, so a step
+# can raise the f64 central cost by f32 rounding (1.1e-6 on smallGrid3D
+# near its optimum, on a CPU)
+PAR_F32_RISE = 1e-5
+PAR_AGENTS = 8
+SCALING_AGENTS = (1, 2, 4, 8, 16)
 
 
 def phase(msg: str):
@@ -904,7 +951,8 @@ def agent_gnc_phase(torch, tmp, refs):
 def mr_phase(torch, tmp, refs):
     """DC2-PGO (drivers.multi_robot_pgo.run) with 5 robots on smallGrid3D
     from the Chordal init at the driver's defaults, on the card: it must
-    certify at JAX's rank with JAX's f* (1e-8).  Returns ms per round."""
+    certify at JAX's rank with JAX's f* (1e-8).  Returns (the file, the
+    result): [parallel certify] certifies its optimum again, sharded."""
     from dcora_tpu_torch import datasets
     from dcora_tpu_torch.drivers import multi_robot_pgo
     from dcora_tpu_torch.types import InitializationMethod
@@ -932,7 +980,7 @@ def mr_phase(torch, tmp, refs):
     require(res.certified and ref["certified"], "DC2-PGO: not certified")
     require(res.final_rank == ref["rank"], "DC2-PGO: rank differs")
     require(rel <= MR_F_RTOL, f"DC2-PGO: f* rel {rel:.2e} > {MR_F_RTOL}")
-    return ms_round
+    return path, res
 
 
 def dist_gnc_phase(torch, tmp, refs):
@@ -1064,6 +1112,435 @@ def mr_ra_phase(torch, name, path, refs):
     return wall
 
 
+def _cost_trace(res):
+    import numpy as np
+
+    return np.array([c for _, c, _ in res.trace])
+
+
+def _held(name, got, want, tol):
+    """max relative difference of two cost traces, required <= tol."""
+    import numpy as np
+
+    want = np.asarray(want)
+    require(len(got) == len(want), f"{name}: {len(got)} rounds, reference "
+            f"{len(want)}")
+    rel = float((np.abs(got - want) / np.abs(want)).max())
+    require(rel <= tol, f"{name}: the costs per round differ from the "
+            f"reference: rel {rel:.2e} > {tol:.0e}")
+    return rel
+
+
+def _grid_fleet(path, A):
+    """The par_grid10k ParallelRBCDProblem, as drivers.parallel_pgo builds
+    it."""
+    from dcora_tpu_torch.core.graph import LocalGraph
+    from dcora_tpu_torch.drivers.multi_robot_pgo import partition_measurements
+    from dcora_tpu_torch.io import read_g2o_file
+    from dcora_tpu_torch.parallel.rbcd import build_parallel_problem
+
+    ds = read_g2o_file(path)
+    ms = ds.pose_pose_measurements
+    odo, priv, shared, _ = partition_measurements(ms, ds.num_poses, A)
+    graphs = []
+    for a in range(A):
+        g = LocalGraph(a, 5, ds.dim)
+        g.set_measurements(odo[a] + priv[a] + shared[a])
+        graphs.append(g)
+    return build_parallel_problem(graphs)
+
+
+def par_grid_phase(torch, path, ref):
+    """[parallel] drivers.parallel_pgo.run on grid10k in 8 agents of 1,331
+    poses at rank 5, the driver's RTR settings, on the card: (a) the edge
+    path at f64 and (b) the tiled path at f64 tiles, each 30 rounds with
+    every round's central cost held to JAX's (round 1 to PAR_RTOL, every
+    round to PAR_GRID_RTOL); (c) the driver's
+    default, f32 tiles, 100 rounds timed, its first 30 rounds' costs held
+    to (b)'s (PAR_F32_RTOL) and its cost never rising.  Kernel 1 must
+    launch once per batched tile product across (b) and (c), for all eight
+    agents together, and kernels 2 and 3 never.  Returns (launch counts,
+    the result of (a), the padded problem)."""
+    import numpy as np
+
+    from dcora_tpu_torch.core import spmm, tiled
+    from dcora_tpu_torch.drivers import parallel_pgo
+
+    A, n = ref["agents"], 10_648
+
+    def run(backend, dtype, rounds):
+        t0 = time.perf_counter()
+        res = parallel_pgo.run(A, path, max_rounds=rounds,
+                               rgrad_norm_tol=0.0, check_every=1,
+                               backend=backend, tile_dtype=dtype,
+                               device="cuda")
+        require(res.X.rot.is_cuda, "parallel PGO: the state is not on the "
+                "card")
+        return res, time.perf_counter() - t0
+
+    res_a, wall_a = run("edge", torch.float64, 30)
+    rel_a = [_held("par_grid10k edge", _cost_trace(res_a)[:k],
+                   ref["edge"]["cost_trace"][:k], tol)
+             for k, tol in ((1, PAR_RTOL), (30, PAR_GRID_RTOL))]
+    products, restore = counting_products(tiled)
+    try:
+        spmm.reset_launches()
+        res_b, wall_b = run("tiled", torch.float64, 30)
+        res_c, wall_c = run("tiled", torch.float32, 100)
+        counts = spmm.launch_counts()
+    finally:
+        restore()
+    require(counts["spmm_sym"] == products[0] > 0,
+            f"parallel tiled rounds: kernel 1 did not launch once per "
+            f"batched tile product: {counts}, {products[0]} products")
+    require(counts["spmm_symmetric"] == counts["spmm_paired"] == 0,
+            f"parallel tiled rounds launched another kernel: {counts}")
+    cb, cc = _cost_trace(res_b), _cost_trace(res_c)
+    rel_b = [_held("par_grid10k tiled f64", cb[:k],
+                   ref["tiled"]["cost_trace"][:k], tol)
+             for k, tol in ((1, PAR_RTOL), (30, PAR_GRID_RTOL))]
+    rel_c = float((np.abs(cc[:30] - cb) / np.abs(cb)).max())
+    rise = float((np.diff(cc) / np.abs(cc[:-1])).max())
+    pp = _grid_fleet(path, A)
+    real, padded = res_c.columns
+    ms = {k: 1e3 * r.rounds_s / r.rounds
+          for k, r in (("edge", res_a), ("tiled_f64", res_b),
+                       ("tiled_f32", res_c))}
+    phase(f"[parallel] grid10k, {A} agents of {pp.n_max} poses, rank 5: "
+          f"(a) edge f64 30 rounds, cost {float(cb[0])!r} -> "
+          f"{float(_cost_trace(res_a)[-1])!r}, against JAX's: round 1 rel "
+          f"{rel_a[0]:.1e}, every round max rel {rel_a[1]:.1e}, "
+          f"{ms['edge']:.3f} ms per round (wall {wall_a:.2f}s); (b) tiled "
+          f"f64 30 rounds, round 1 rel {rel_b[0]:.1e}, every round max rel "
+          f"{rel_b[1]:.1e}, "
+          f"{ms['tiled_f64']:.3f} ms per round (wall {wall_b:.2f}s); (c) "
+          f"tiled f32 (the driver's default) 100 rounds, "
+          f"{ms['tiled_f32']:.3f} ms per round, "
+          f"{res_c.rounds * n / res_c.rounds_s:.0f} pose-updates/s (wall "
+          f"{wall_c:.2f}s), first 30 rounds against (b) max rel "
+          f"{rel_c:.1e}, largest rise {rise:.1e}, cost {float(cc[0])!r} -> "
+          f"{float(cc[-1])!r}; kernel 1 {counts['spmm_sym']} launches = "
+          f"{products[0]} batched tile products; padding: {real} real "
+          f"scalar columns of {padded} ({100 * (1 - real / padded):.2f} %)")
+    require(rel_c <= PAR_F32_RTOL, f"par_grid10k: the f32 rounds part from "
+            f"the f64 rounds: rel {rel_c:.2e} > {PAR_F32_RTOL:.0e}")
+    require(rise <= PAR_F32_RISE and cc[-1] < cc[0],
+            f"par_grid10k: the f32 rounds' cost rose (rel {rise:.2e})")
+    return counts, res_a, pp
+
+
+def par_profile_phase(torch, pp, X):
+    """[parallel profile] 20 rounds of par_grid10k's edge path and 10 of
+    its tiled f32 path under torch.profiler (device activity only): the
+    device's busy share (the union of kernel intervals over the host's
+    wall, after a synchronize) and the host's share."""
+    from dcora_tpu_torch.drivers.parallel_pgo import ROUND_CFG
+    from dcora_tpu_torch.parallel.rbcd import ParallelRound
+    from dcora_tpu_torch.tools.profile_slice import _kernel_summary
+
+    out = {}
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for name, rounds, kw in (
+            ("edge", 20, dict(backend="edge")),
+            ("tiled f32", 10, dict(backend="tiled",
+                                   tile_dtype=torch.float32))):
+        rnd = ParallelRound(pp, ROUND_CFG, device="cuda", **kw)
+        Xr = X
+        for _ in range(2):
+            Xr, _ = rnd(Xr)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                Xr, _ = rnd(Xr)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        k = _kernel_summary(prof)
+        busy = k["kernel_busy_s"] / wall
+        out[name] = (wall, busy)
+        top = ", ".join(f"{e['name'][:40]} {e['count']}x "
+                        f"{1e3 * e['seconds']:.1f}ms"
+                        for e in k["by_name"][:4])
+        phase(f"[parallel profile] grid10k {name}, {rounds} rounds: wall "
+              f"{1e3 * wall:.1f} ms ({1e3 * wall / rounds:.3f} ms per round "
+              f"under the profiler), device busy {100 * busy:.1f} %, host "
+              f"{100 * (1 - busy):.1f} %; {k['kernels']} kernels; top: "
+              f"{top}")
+    return out
+
+
+def par_kernel_phase(torch, pp):
+    """[parallel kernel] kernel 1 on the 8 agents' stacked strips against
+    spmm_strips_plain, f32 and f64 at r_pad 8, timed in turns beside
+    torch.sparse.mm on the same block-diagonal Q and the bytes bound; and
+    the eight agents' own launches in a row, event and device time."""
+    from dcora_tpu_torch.core import spmm
+    from dcora_tpu_torch.parallel.rbcd import build_stacked_tiled
+    from dcora_tpu_torch.tools import common
+
+    rows = []
+    A = pp.num_agents
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for dtype in (torch.float32, torch.float64):
+        TP = build_stacked_tiled(pp, 0, A, dtype, "cuda")
+        Q, width = TP.Q, A * TP.meta.kpad
+        X = torch.randn((8, width), generator=gen, dtype=dtype,
+                        device="cuda")
+        csr, stored_nnz = common.symmetric_csr(Q, width)
+        Xt = X.t().contiguous()
+        dense = spmm.spmm_sym_plain(Q.tiles, Q.tile_rows, Q.tile_cols, X)
+        bound = common.spmm_bound_ms(stored_nnz, csr.values().numel(), 8,
+                                     width, dtype, hbm_gbs(torch))
+        st = common.q_stats(TP)
+        phase(f"[parallel kernel] {str(dtype).split('.')[-1]}: {A} agents' "
+              f"strips side by side: {st['strips']} strips, {st['blocks']} "
+              f"non-empty 4x4 blocks, {st['strip_mb']:.2f} MB")
+        rows += compare_and_time(
+            torch, "par_grid10k", {"spmm_sym": (
+                lambda: spmm.spmm_sym(Q.strips, X),  # noqa: B023
+                lambda: spmm.spmm_strips_plain(Q.strips, X))},  # noqa: B023
+            lambda: torch.sparse.mm(csr, Xt),  # noqa: B023
+            dense, X, 8, bound)
+        per = [build_stacked_tiled(pp, a, a + 1, dtype, "cuda").Q.strips
+               for a in range(A)]
+        kp = TP.meta.kpad
+        Xa = [X[:, a * kp:(a + 1) * kp].contiguous() for a in range(A)]
+        W = spmm.spmm_sym(Q.strips, X)
+        for a in range(A):
+            Wa = spmm.spmm_sym(per[a], Xa[a])
+            require(torch.equal(Wa, W[:, a * kp:(a + 1) * kp]),
+                    f"kernel 1: agent {a}'s own product differs from its "
+                    f"part of the stacked product")
+
+        def each():
+            for a in range(A):
+                spmm.spmm_sym(per[a], Xa[a])  # noqa: B023
+
+        def stacked():
+            spmm.spmm_sym(Q.strips, X)  # noqa: B023
+
+        ev = common.time_turns_ms([stacked, each])
+        dev = [common.device_ms(stacked), common.device_ms(each)]
+        dt = str(dtype).split(".")[-1]
+        rows[-1].update(per_agent_ms=ev[1], device_ms=dev[0],
+                        per_agent_device_ms=dev[1])
+        phase(f"[parallel kernel] {dt} r_pad=8: {A} agents' strips "
+              f"stacked, one launch: {ev[0]:.4f} ms event, {dev[0]:.4f} ms "
+              f"device; the agents' {A} own launches in a row: {ev[1]:.4f} "
+              f"ms event, {dev[1]:.4f} ms device; each agent's part of the "
+              f"stacked product bitwise its own")
+    return rows
+
+
+def par_ra_phase(torch, paths, ref):
+    """[parallel-ra] drivers.parallel_raslam.run on the card: ra500_nl at
+    rank 3, 30 rounds on the edge path and on f64 tiles, every round's
+    central cost held to JAX's (PAR_RTOL); ra10k_nl (9,750 poses, no
+    landmarks) 10 edge rounds held to JAX's, then 50 rounds at the
+    driver's default (f32 tiles) timed; ra500, which has landmarks, raises
+    the JAX package's KeyError.  Returns the kernel launch counts of its
+    tiled runs."""
+    import numpy as np
+
+    from dcora_tpu_torch.core import spmm, tiled
+    from dcora_tpu_torch.drivers import parallel_raslam
+
+    def run(name, backend, dtype, rounds):
+        t0 = time.perf_counter()
+        res = parallel_raslam.run(paths[name], max_rounds=rounds,
+                                  rgrad_norm_tol=0.0, check_every=1,
+                                  backend=backend, tile_dtype=dtype,
+                                  device="cuda")
+        require(res.X.rot.is_cuda, "parallel RA: the state is not on the "
+                "card")
+        return res, time.perf_counter() - t0
+
+    products, restore = counting_products(tiled)
+    try:
+        spmm.reset_launches()
+        out = {}
+        for backend in ("edge", "tiled"):
+            out[backend] = run("ra500_nl", backend, torch.float64, 30)
+        ra10k = run("ra10k_nl", "edge", torch.float64, 10)
+        ra10k_def = run("ra10k_nl", "tiled", torch.float32, 50)
+        counts = spmm.launch_counts()
+    finally:
+        restore()
+    require(counts["spmm_sym"] == products[0] > 0
+            and counts["spmm_symmetric"] == counts["spmm_paired"] == 0,
+            f"parallel RA: not one kernel-1 launch per tile product: "
+            f"{counts}, {products[0]} products")
+    msg = []
+    for name, res in (("ra500_nl", out["edge"][0]), ("ra10k_nl", ra10k[0])):
+        real, padded = res.columns
+        msg.append(f"{name} padding: {real} real scalar columns of "
+                   f"{padded} ({100 * (1 - real / padded):.2f} %)")
+    for backend, (res, wall) in out.items():
+        c = _cost_trace(res)
+        rel = _held(f"par_ra500_nl {backend}", c,
+                    ref["par_ra500_nl"][backend]["cost_trace"], PAR_RTOL)
+        msg.append(f"{backend} f64 30 rounds {float(c[0])!r} -> "
+                   f"{float(c[-1])!r}, max "
+                   f"rel {rel:.1e}, {1e3 * res.rounds_s / res.rounds:.3f} "
+                   f"ms per round")
+    c10 = _cost_trace(ra10k[0])
+    rel10 = _held("par_ra10k_nl edge", c10,
+                  ref["par_ra10k_nl"]["edge"]["cost_trace"], PAR_RTOL)
+    cd = _cost_trace(ra10k_def[0])
+    rel_d = float((np.abs(cd[:10] - c10) / np.abs(c10)).max())
+    key = None
+    try:
+        parallel_raslam.run(paths["ra500"], max_rounds=1, device="cuda")
+    except KeyError as e:
+        key = repr(e.args[0])
+    require(key is not None and "Landmark" in key,
+            f"parallel RA on ra500: expected the JAX package's KeyError on "
+            f"a landmark, got {key}")
+    n10 = 9750
+    phase(f"[parallel-ra] ra500_nl, 5 agents, rank 3: " + "; ".join(msg)
+          + f"; ra10k_nl edge f64 10 rounds {float(c10[0])!r} -> "
+          f"{float(c10[-1])!r}, "
+          f"max rel {rel10:.1e}, "
+          f"{1e3 * ra10k[0].rounds_s / 10:.3f} ms per round; at the "
+          f"driver's default (f32 tiles) 50 rounds "
+          f"{1e3 * ra10k_def[0].rounds_s / 50:.3f} ms per round, "
+          f"{50 * n10 / ra10k_def[0].rounds_s:.0f} state-updates/s (wall "
+          f"{ra10k_def[1]:.2f}s), first 10 rounds against JAX's edge max "
+          f"rel {rel_d:.1e}, cost -> {float(cd[-1])!r}; ra500 (landmarks) "
+          f"raises KeyError {key}, as JAX; kernel 1 {counts['spmm_sym']} launches "
+          f"= {products[0]} tile products")
+    return counts
+
+
+def par_dist_phase(torch, pp, X):
+    """[parallel dist] the 8-agent grid10k round (the driver's default,
+    f32 tiles) inside a one-rank NCCL group on a TCP store on localhost,
+    bitwise equal to the round with no group, with torch's deterministic
+    algorithms on (index_add_ then sums in one order from call to call)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from dcora_tpu_torch.drivers.parallel_pgo import ROUND_CFG
+    from dcora_tpu_torch.parallel.rbcd import ParallelRound, init_group
+
+    kw = dict(backend="tiled", tile_dtype=torch.float32, device="cuda")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        local = ParallelRound(pp, ROUND_CFG, **kw)(X)
+        again = ParallelRound(pp, ROUND_CFG, **kw)(X)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        group = init_group("cuda", f"tcp://localhost:{port}", 1, 0)
+        try:
+            backend = dist.get_backend(group)
+            t0 = time.perf_counter()
+            in_group = ParallelRound(pp, ROUND_CFG, group=group, **kw)(X)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    same = all(torch.equal(a, b) for a, b in zip(in_group[0], local[0])) \
+        and torch.equal(in_group[1], local[1])
+    repeat = all(torch.equal(a, b) for a, b in zip(again[0], local[0]))
+    phase(f"[parallel dist] grid10k, {pp.num_agents} agents, f32 tiles: "
+          f"the round in a one-rank {backend} group bitwise equal to the "
+          f"local round: {same} (two local rounds bitwise equal: {repeat}); "
+          f"build and round {wall:.2f}s")
+    require(backend == "nccl", f"the group's backend is {backend}")
+    require(same, "the one-rank NCCL round differs from the local round")
+
+
+def par_certify_phase(torch, path10k, X10k, mr):
+    """[parallel certify] the edge-sharded S matvec with 8 shards against
+    the central apply_S on grid10k, at par_grid10k's state after 30 edge
+    rounds (1e-12 of max|S v| at f64); fast_verification_sharded at
+    DC2-PGO's certified smallGrid3D optimum ([multi-robot]) certifies, and
+    minimum_eigen_pair_sharded there agrees with the central
+    minimum_eigen_pair (PAR_EIG_TOL of the largest-magnitude eigenvalue)."""
+    import numpy as np
+
+    from dcora_tpu_torch.core import certify, lifted
+    from dcora_tpu_torch.core.graph import LocalGraph
+    from dcora_tpu_torch.io import read_g2o_file
+    from dcora_tpu_torch.parallel.certify import (
+        fast_verification_sharded,
+        make_sharded_matvec,
+        minimum_eigen_pair_sharded,
+        shard_problem_edges,
+    )
+
+    g = LocalGraph(0, 5, 3)
+    g.set_measurements(read_g2o_file(path10k).pose_pose_measurements)
+    P = g.problem_data(device="cuda")
+    C = certify.dual_certificate_blocks(P, X10k)
+    dims = X10k.dims
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    v = torch.randn(dims.k, generator=gen, dtype=torch.float64,
+                    device="cuda")
+    w = make_sharded_matvec(shard_problem_edges(P, PAR_AGENTS), C, dims)(
+        v, torch.zeros((), dtype=torch.float64, device="cuda"))
+    want = lifted.to_flat(certify.apply_S(
+        P, C, lifted.from_flat(v[None], dims)))[0]
+    err = float((w - want).abs().max()) / float(want.abs().max())
+    require(err <= 1e-12, f"sharded S matvec: rel {err:.2e} > 1e-12")
+    path, res = mr
+    gs = LocalGraph(0, res.final_rank, 3)
+    gs.set_measurements(read_g2o_file(path).pose_pose_measurements)
+    Ps = gs.problem_data(device="cuda")
+    t0 = time.perf_counter()
+    ok, theta, _ = fast_verification_sharded(Ps, res.X, 1e-3, PAR_AGENTS)
+    t_ver = time.perf_counter() - t0
+    Cs = certify.dual_certificate_blocks(Ps, res.X)
+    lam_s, _, _ = minimum_eigen_pair_sharded(Ps, Cs, res.X.dims, PAR_AGENTS)
+    lam_c, _, _ = certify.minimum_eigen_pair(Ps, Cs, res.X.dims)
+    k = res.X.dims.k
+    lam_lm = float(certify._ritz_extreme(*certify._lanczos(
+        certify._flat_matvec(Ps, Cs, res.X.dims, 0.0),
+        torch.as_tensor(np.random.default_rng(0).standard_normal(k),
+                        dtype=torch.float64, device="cuda"), min(64, k),
+        1e-12, torch.Generator(device="cuda").manual_seed(0)))[0])
+    diff = abs(lam_s - lam_c) / abs(lam_lm)
+    phase(f"[parallel certify] grid10k S matvec over {PAR_AGENTS} edge "
+          f"shards against apply_S: rel {err:.1e}; DC2-PGO's smallGrid3D "
+          f"optimum (rank {res.final_rank}): sharded verification certified="
+          f"{ok} ({t_ver:.2f}s), lambda_min sharded {lam_s!r} vs central "
+          f"{lam_c!r} (diff {diff:.1e} of |lambda_lm| = {abs(lam_lm):.4g})")
+    require(ok, "the sharded verification does not certify DC2-PGO's "
+            "optimum")
+    require(diff <= PAR_EIG_TOL, f"sharded lambda_min {lam_s} vs central "
+            f"{lam_c}")
+
+
+def par_scaling_phase(torch, path):
+    """[scaling] tools.scaling_bench on grid10k at A in SCALING_AGENTS, 20
+    rounds each (f32 tiles, odometry init): rounds/s, pose-updates/s and
+    kernel-1 launches per round; JSON under chiprun_out/."""
+    from dcora_tpu_torch.tools import scaling_bench
+    from dcora_tpu_torch.tools.common import card
+
+    sweep = []
+    for A in SCALING_AGENTS:
+        rec = scaling_bench.measure(path, A, 20)
+        sweep.append(rec)
+        phase(f"[scaling] grid10k A={A}: {rec['ms_per_round']:.3f} ms per "
+              f"round, {rec['rounds_per_s']:.2f} rounds/s, "
+              f"{rec['pose_updates_per_s']:.0f} pose-updates/s, kernel 1 "
+              f"{rec['spmm_sym_per_round']:.1f} launches per round, padding "
+              f"{100 * rec['padding_share']:.2f} %")
+        require(rec["other_kernel_launches"] == 0,
+                "the scaling bench launched kernel 2 or 3")
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "scaling_grid10k.json"),
+              "w") as fh:
+        json.dump(dict(dataset="grid10k", card=card(), devices=1,
+                       sweep=sweep), fh, indent=1)
+
+
 def main() -> int:
     require(os.path.isdir(os.path.join(HERE, "dcora_tpu_torch")),
             "dcora_tpu_torch/ is not beside this script: run it from a "
@@ -1083,12 +1560,14 @@ def main() -> int:
     with open(REFERENCE) as fh:
         refs = json.load(fh)
     robust_refs = _robust_refs()
+    with open(PAR_REFERENCE) as fh:
+        par_refs = json.load(fh)
     ra_refs = {}
     if os.path.exists(RA_REFERENCE):
         with open(RA_REFERENCE) as fh:
             ra_refs = json.load(fh)
     rows, counts, paired, benched, ra = [], {}, {}, {}, {}
-    gnc_counts, agent_counts = {}, {}
+    gnc_counts, agent_counts, par_counts, par_ra_counts = {}, {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
         for name in ("smallGrid3D", "grid10k"):
@@ -1145,10 +1624,29 @@ def main() -> int:
         phase(f"[launches] gnc2500: {gnc_counts}")
         rows += gnc_kernel_phase(torch, gnc_ms)
         agent_counts = agent_gnc_phase(torch, tmp, robust_refs)
-        mr_phase(torch, tmp, robust_refs)
+        mr = mr_phase(torch, tmp, robust_refs)
         dist_gnc_phase(torch, tmp, robust_refs)
         for name in ("ra500", "ra500_nl"):
             mr_ra_phase(torch, name, paths[name], robust_refs)
+        # the parallel scaling mode
+        paths["ra10k_nl"] = datasets.generate_ra_slam_pyfg(
+            os.path.join(tmp, "ra10k_nl.pyfg"), poses_per_robot=1950,
+            **dict(common.RA_KW, num_landmarks=0))
+        for name, kw in (("par_grid10k", refs["grid10k"]["kwargs"]),
+                         ("par_ra500_nl", dict(common.RA_KW, num_landmarks=0,
+                                               poses_per_robot=100)),
+                         ("par_ra10k_nl", dict(common.RA_KW, num_landmarks=0,
+                                               poses_per_robot=1950))):
+            require(par_refs[name]["kwargs"] == kw,
+                    f"{name}: the reference was made from another set")
+        par_counts, par_a, pp10k = par_grid_phase(
+            torch, paths["grid10k"], par_refs["par_grid10k"])
+        par_profile_phase(torch, pp10k, par_a.X_stack)
+        rows += par_kernel_phase(torch, pp10k)
+        par_ra_counts = par_ra_phase(torch, paths, par_refs)
+        par_dist_phase(torch, pp10k, par_a.X_stack)
+        par_certify_phase(torch, paths["grid10k"], par_a.X, mr)
+        par_scaling_phase(torch, paths["grid10k"])
         ra_rows, tps = ra_kernel_phase(torch, paths["ra10k"])
         rows += ra_rows
         btd_phase(torch, tps)
@@ -1165,16 +1663,20 @@ def main() -> int:
     # the row each kernel's path launches most: f64 at r_pad 8 on the grid
     # for the certified solves (the f64-tile phase's tCG product), f32 at
     # r_pad 8 for spmm_bench; kernel 1's launches are those of the PGO, the
-    # GNC (centralized and the agent's init) and the RA solves together
+    # GNC (centralized and the agent's init), the RA solves and the
+    # parallel rounds (PGO and RA) together
     launches = dict(spmm_sym=counts["spmm_sym"] + sum(
                         c["spmm_sym"] for c, _ in ra.values())
-                    + gnc_counts["spmm_sym"] + agent_counts["spmm_sym"],
+                    + gnc_counts["spmm_sym"] + agent_counts["spmm_sym"]
+                    + par_counts["spmm_sym"] + par_ra_counts["spmm_sym"],
                     spmm_tile=benched["spmm_symmetric"],
                     spmm_paired=paired["spmm_paired"])
     phase("[launches] spmm_sym per path: " + ", ".join(
         [f"pgo {counts['spmm_sym']}", f"gnc2500 {gnc_counts['spmm_sym']}",
          f"gnc agent init {agent_counts['spmm_sym']}"]
-        + [f"{k} {c['spmm_sym']}" for k, (c, _) in ra.items()]))
+        + [f"{k} {c['spmm_sym']}" for k, (c, _) in ra.items()]
+        + [f"parallel grid10k {par_counts['spmm_sym']}",
+           f"parallel ra {par_ra_counts['spmm_sym']}"]))
     main_dtype = dict(spmm_sym="float64", spmm_tile="float32",
                       spmm_paired="float64")
     entries = []

@@ -136,3 +136,47 @@ def tiled_problem(TPj, device="cpu", dtype=None) -> TiledProblem:
         diag_inv=opt(TPj.diag_inv), btd_ltil=opt(TPj.btd_ltil),
         btd_sinv=opt(TPj.btd_sinv),
     )
+
+
+_PARALLEL_MAPS = ("fix_pose_src", "fix_trans_src", "fix_sph_src",
+                  "pub_pose_idx", "pub_lmk_idx", "pub_sph_idx")
+
+
+def parallel_arrays(pp) -> Dict[str, np.ndarray]:
+    """The batched arrays of a parallel RBCD problem, of either engine
+    (the JAX package's ParallelRBCDProblem keeps them in ``.batched``), as
+    numpy: every ProblemData edge field of P and P_loc, the preconditioner
+    M, the gather maps, the public-buffer indices and regs."""
+    B = getattr(pp, "batched", pp)
+    out = {}
+    for part in ("P", "P_loc"):
+        Pb = getattr(B, part)
+        for name in prob.ProblemData._fields[:24]:
+            out[f"{part}.{name}"] = _a(getattr(Pb, name))
+    for name in ("pose_inv", "sph_diag", "lmk_diag"):
+        out[f"M.{name}"] = _a(getattr(B.M, name))
+    for name in _PARALLEL_MAPS:
+        out[name] = _a(getattr(B, name))
+    out["regs"] = _a(pp.regs)
+    return out
+
+
+
+def parallel_problem(pp, graphs, device="cpu"):
+    """JAX ParallelRBCDProblem -> the port's ParallelRBCDProblem, over the
+    port's LocalGraphs of the same agents (`graphs`, for their sizes)."""
+    from dcora_tpu_torch.parallel.rbcd import ParallelRBCDProblem
+
+    B = pp.batched
+
+    def ints(x):
+        return torch.as_tensor(_a(x).astype(np.int64), device=device)
+
+    return ParallelRBCDProblem(
+        P=problem_data(B.P, device), P_loc=problem_data(B.P_loc, device),
+        M=preconditioner(B.M, device),
+        **{name: ints(getattr(B, name)) for name in _PARALLEL_MAPS},
+        **{name: int(getattr(pp, name)) for name in (
+            "n_max", "l_max", "b_max", "t_max", "fp_max", "ft_max", "fs_max",
+            "pp_max", "plm_max", "ps_max", "d", "num_agents")},
+        graphs=list(graphs), regs=_a(pp.regs).astype(np.float64))

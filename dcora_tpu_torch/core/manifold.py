@@ -29,9 +29,12 @@ def _sym(P: torch.Tensor) -> torch.Tensor:
 
 
 def inv_sqrt_psd(G: torch.Tensor) -> torch.Tensor:
-    """Batched inverse matrix square root of small SPD matrices via eigh."""
+    """Batched inverse matrix square root of small SPD matrices via eigh.
+    A zero block (a padded pose of a stack of agents) maps to a finite
+    matrix, so its zero state stays zero under the polar retraction."""
     w, U = torch.linalg.eigh(G)
-    inv_sqrt_w = 1.0 / torch.sqrt(torch.clamp(w, min=1e-300))
+    floor = 1e-300 if w.dtype == torch.float64 else torch.finfo(w.dtype).tiny
+    inv_sqrt_w = 1.0 / torch.sqrt(torch.clamp(w, min=floor))
     # U diag(w^-1/2) U^T as one batched matmul (a three-operand einsum pays
     # a contraction-path search on every call)
     return (U * inv_sqrt_w[..., None, :]) @ U.transpose(-1, -2)

@@ -30,7 +30,10 @@ one flag per iteration.
 The one-accepted-step mode of RBCD (``RTRConfig.single_accepted_step``;
 QuadraticOptimizer.cpp:253-273) shrinks the radius by 4 after each try, up
 to ``max_rejections`` + 1 tries, as a host loop around the same tCG;
-``rgd_step`` is the agents' RGD alternative.  Not ported: ``rtr_chunked``
+``rtr_stacked`` runs it for every agent of a stack at once (the parallel
+RBCD of ``dcora_tpu_torch.parallel.rbcd``), with one radius, try count
+and tCG stopping state per agent; ``rgd_step`` is the agents' RGD
+alternative.  Not ported: ``rtr_chunked``
 (a TPU RPC-watchdog workaround), RSD (no agent's ``ROptMethod`` reaches
 it) and the float32 tCG option.
 """
@@ -65,29 +68,47 @@ def tmap(fn, *args):
     return _rebuild(args[0], [fn(*xs) for xs in zip(*map(_leaves, args))])
 
 
-def tvdot(a, b) -> torch.Tensor:
-    return sum(torch.sum(x * y) for x, y in zip(_leaves(a), _leaves(b)))
+# A stack of agents (parallel.rbcd) carries one solve per agent along an
+# agent axis `ax` of every leaf: inner products and norms are then [A]
+# tensors, and an [A] factor or flag acts along that axis.  ax=None is the
+# single problem, where they are 0-d.
 
 
-def tnorm(a) -> torch.Tensor:
-    return torch.sqrt(tvdot(a, a))
+def _along(s, x, ax):
+    """s as a factor of leaf x: as it is, or an [A] tensor along axis ax."""
+    if ax is None or not isinstance(s, torch.Tensor) or s.dim() == 0:
+        return s
+    shape = [1] * x.dim()
+    shape[ax] = s.shape[0]
+    return s.view(shape)
 
 
-def tscale(a, s):
-    return tmap(lambda x: s * x, a)
+def tvdot(a, b, ax=None) -> torch.Tensor:
+    if ax is None:
+        return sum(torch.sum(x * y) for x, y in zip(_leaves(a), _leaves(b)))
+    return sum((x * y).sum([i for i in range(x.dim()) if i != ax])
+               for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def tnorm(a, ax=None) -> torch.Tensor:
+    return torch.sqrt(tvdot(a, a, ax))
+
+
+def tscale(a, s, ax=None):
+    return tmap(lambda x: _along(s, x, ax) * x, a)
 
 
 def tadd(a, b):
     return tmap(torch.add, a, b)
 
 
-def taxpy(s, x, y):
+def taxpy(s, x, y, ax=None):
     """y + s * x."""
-    return tmap(lambda xi, yi: yi + s * xi, x, y)
+    return tmap(lambda xi, yi: yi + _along(s, xi, ax) * xi, x, y)
 
 
-def twhere(c, a, b):
-    return tmap(lambda ai, bi: torch.where(c, ai, bi), a, b)
+def twhere(c, a, b, ax=None):
+    return tmap(lambda ai, bi: torch.where(_along(c, ai, ax), ai, bi), a, b)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +139,8 @@ class RTRConfig:
 
 class _RABackend:
     """RAState + edge-path cost engine (problem.py)."""
+
+    agent_dim = None  # one problem (see tvdot)
 
     def applyQ(self, P, X):
         return prob.apply_Q(P, X)
@@ -153,7 +176,11 @@ class _FlatBackend:
     """Flat [r_pad, kpad] tensors over the tiled ordering (tiled.py).
 
     P is a tiled.TiledProblem (preconditioner included); M is ignored.
+    A stack of agents' problems (parallel.rbcd.StackedFlatBackend) runs the
+    same ops on [r_pad, A, kpad] tensors.
     """
+
+    agent_dim = None
 
     def applyQ(self, P, X):
         return tiled.apply_tiled(P, X)
@@ -263,31 +290,34 @@ def _tcg_step(be, P, M, X, aux, radius, stop_tol, max_inner: int,
     """One Steihaug-Toint iteration.  After the iteration that converges
     (boundary hit, negative curvature, a small residual or the max_inner-th
     step) eta, Heta and the count are frozen by masking, so iterations
-    issued after it leave the result unchanged."""
+    issued after it leave the result unchanged.  On a stack of agents
+    (be.agent_dim set) every scalar and flag is one per agent."""
+    ax = be.agent_dim
     eta, Heta, r, z, d, rz, it, done = s
     Hd = _rhess(be, P, X, d, aux)
-    dHd = tvdot(d, Hd)
+    dHd = tvdot(d, Hd, ax)
     alpha = rz / torch.where(dHd == 0, torch.ones_like(dHd), dHd)
-    eta_next = taxpy(alpha, d, eta)
-    hit = (dHd <= 0) | (tnorm(eta_next) >= radius)
+    eta_next = taxpy(alpha, d, eta, ax)
+    hit = (dHd <= 0) | (tnorm(eta_next, ax) >= radius)
     # largest tau >= 0 with ||eta + tau d|| = radius
-    dd = tvdot(d, d)
-    ed = tvdot(eta, d)
-    ee = tvdot(eta, eta)
+    dd = tvdot(d, d, ax)
+    ed = tvdot(eta, d, ax)
+    ee = tvdot(eta, eta, ax)
     disc = torch.clamp(ed * ed - dd * (ee - radius ** 2), min=0.0)
     tau = (-ed + torch.sqrt(disc)) / torch.where(dd == 0,
                                                  torch.ones_like(dd), dd)
-    eta_new = twhere(hit, taxpy(tau, d, eta), eta_next)
-    Heta_new = twhere(hit, taxpy(tau, Hd, Heta), taxpy(alpha, Hd, Heta))
-    r = taxpy(alpha, Hd, r)
+    eta_new = twhere(hit, taxpy(tau, d, eta, ax), eta_next, ax)
+    Heta_new = twhere(hit, taxpy(tau, Hd, Heta, ax),
+                      taxpy(alpha, Hd, Heta, ax), ax)
+    r = taxpy(alpha, Hd, r, ax)
     z = be.precond(P, M, X, r)
-    rz_new = tvdot(r, z)
-    small = tnorm(r) <= stop_tol
+    rz_new = tvdot(r, z, ax)
+    small = tnorm(r, ax) <= stop_tol
     beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-    d = taxpy(beta, d, tscale(z, -1.0))
+    d = taxpy(beta, d, tscale(z, -1.0), ax)
     # masked commit: a converged solve keeps its eta, Heta and count
-    eta = twhere(done, eta, eta_new)
-    Heta = twhere(done, Heta, Heta_new)
+    eta = twhere(done, eta, eta_new, ax)
+    Heta = twhere(done, Heta, Heta_new, ax)
     it = it + (~done).to(torch.int32)
     done = done | hit | small | (it >= max_inner)
     return _TCGState(eta, Heta, r, z, d, rz_new, it, done)
@@ -367,43 +397,53 @@ class TCGGraph:
         return self.state[-1]
 
 
+def _all(flag: torch.Tensor) -> torch.Tensor:
+    return flag if flag.dim() == 0 else flag.all()
+
+
 def truncated_cg(P, X, grad, egrad, M, radius, max_inner: int,
                  kappa: float, theta: float, be=RA_BACKEND,
-                 graph: Optional[TCGGraph] = None) -> TCGResult:
+                 graph: Optional[TCGGraph] = None,
+                 done0: Optional[torch.Tensor] = None) -> TCGResult:
     """Preconditioned Steihaug-Toint tCG for the trust-region subproblem.
 
     Iterations are issued one by one, or, when `graph` is given, STEPS at a
     time by replaying it; either way the host stops issuing them once it
     sees the device-side convergence flag, a few iterations late at most,
-    and those change nothing (_tcg_step)."""
+    and those change nothing (_tcg_step).  On a stack of agents `done0`
+    marks the agents whose solve is not wanted; the host stops when every
+    agent's solve has converged."""
+    ax = be.agent_dim
     zero = tmap(torch.zeros_like, grad)
     r = grad
     z = be.precond(P, M, X, r)
     d = tscale(z, -1.0)
-    r0_norm = tnorm(r)
+    r0_norm = tnorm(r, ax)
     stop_tol = r0_norm * torch.clamp(r0_norm ** theta, max=kappa)
     aux = be.hess_setup(P, X, egrad)
-    it = torch.zeros((), dtype=torch.int32, device=r0_norm.device)
+    it = torch.zeros_like(r0_norm, dtype=torch.int32)
     done = r0_norm < 1e-300
-    s = _TCGState(zero, zero, r, z, d, tvdot(r, z), it, done)
+    if done0 is not None:
+        done = done | done0
+    s = _TCGState(zero, zero, r, z, d, tvdot(r, z, ax), it, done)
     if graph is None:
         probe = _DoneProbe(r0_norm.device)
-        probe.post(done)
+        probe.post(_all(done))
         for _ in range(max_inner):
             if probe.finished():
                 break
             s = _tcg_step(be, P, M, X, aux, radius, stop_tol, max_inner, s)
-            probe.post(s.done)
+            probe.post(_all(s.done))
         return TCGResult(eta=s.eta, Heta=s.Heta, inner_iters=s.it)
     graph.load(X, aux, radius, stop_tol, s)
     # two replays in flight: the device never waits for the host, and the
     # host overshoots convergence by at most 2 * STEPS masked iterations
     probe = _DoneProbe(r0_norm.device, ring=2)
-    probe.post(done)
+    probe.post(_all(done))
     for _ in range(-(-max_inner // graph.STEPS)):
         if probe.finished():
             break
-        probe.post(graph.replay())
+        probe.post(_all(graph.replay()))
     s = _TCGState(*_unflatten(s, [x.clone() for x in graph.state]))
     return TCGResult(eta=s.eta, Heta=s.Heta, inner_iters=s.it)
 
@@ -503,6 +543,71 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         any_acc = any_acc or flags[1]
     return RTRResult(X=X, f_final=f_of(X, W), gradnorm_final=gnorm,
                      outer_iters=it, accepted=any_acc,
+                     radius_final=radius)
+
+
+def rtr_stacked(P, G, M, X0, cfg: RTRConfig, be,
+                graph: Optional[TCGGraph] = None) -> RTRResult:
+    """The one-accepted-step RTR of RBCD (cfg.single_accepted_step) for
+    every agent of a stack at once, along be.agent_dim.
+
+    Each agent gets what `rtr` gives it alone, as under the JAX package's
+    vmap: its own radius, tries and tCG stopping state (every scalar is an
+    [A] tensor), and once it has accepted a step, or when it starts below
+    cfg.gradnorm_tol, it keeps its state.  Its tCG stops with its own flag;
+    the host stops issuing iterations when every agent's has converged, and
+    stops trying when no agent is left.  `graph` is a TCGGraph of the
+    stack's edge path on the card (None issues the iterations one by one).
+    Returns per-agent f_final, gradnorm_final, outer_iters and accepted."""
+    ax = be.agent_dim
+    lead = _leaves(X0)[0]
+    A = lead.shape[ax]
+    radius = torch.full((A,), cfg.initial_radius, dtype=lead.dtype,
+                        device=lead.device)
+    eps = torch.finfo(lead.dtype).eps
+
+    def f_of(X, W):
+        fX = 0.5 * tvdot(W, X, ax)
+        if G is not None:
+            fX = fX + tvdot(X, G, ax)
+        return fX
+
+    def egrad_of(W):
+        return W if G is None else tadd(W, G)
+
+    X, W = X0, be.applyQ(P, X0)
+    below = tnorm(be.tangent(P, X, egrad_of(W)), ax) < cfg.gradnorm_tol
+    active = ~below
+    tries = torch.zeros(A, dtype=torch.int32, device=lead.device)
+    accepted = below
+    for _ in range(cfg.max_rejections + 1):
+        if not bool(active.any()):
+            break
+        fX = f_of(X, W)
+        egrad = egrad_of(W)
+        grad = be.tangent(P, X, egrad)
+        res = truncated_cg(P, X, grad, egrad, M, radius, cfg.max_inner,
+                           cfg.kappa, cfg.theta, be=be, graph=graph,
+                           done0=~active)
+        Xtest = be.retract(P, X, res.eta)
+        Wtest = be.applyQ(P, Xtest)
+        ftest = f_of(Xtest, Wtest)
+        model_decrease = -(tvdot(grad, res.eta, ax)
+                           + 0.5 * tvdot(res.eta, res.Heta, ax))
+        reg = cfg.rho_regularization * eps * torch.clamp(fX.abs(), min=1.0)
+        den = model_decrease + reg
+        rho = (fX - ftest + reg) / torch.where(
+            den.abs() < 1e-300, torch.full_like(den, 1e-300), den)
+        take = active & (rho > cfg.rho_accept) & (ftest <= fX + reg)
+        X = twhere(take, Xtest, X, ax)
+        W = twhere(take, Wtest, W, ax)
+        radius = torch.where(active, radius / 4.0, radius)
+        tries = tries + active.to(torch.int32)
+        accepted = accepted | take
+        active = active & ~take & (tries <= cfg.max_rejections)
+    return RTRResult(X=X, f_final=f_of(X, W),
+                     gradnorm_final=tnorm(be.tangent(P, X, egrad_of(W)), ax),
+                     outer_iters=tries, accepted=accepted,
                      radius_final=radius)
 
 

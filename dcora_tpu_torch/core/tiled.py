@@ -20,6 +20,12 @@ spheres, then landmarks (each section sorted by RCM rank), zero-padded to
 kpad = nt * T.  Zero rank rows above the working rank stay zero under every
 op here.  Only *local* variables appear: endpoints on fixed neighbor slots
 are dropped at build time (their coupling belongs to the linear term G).
+A stack of A agents' problems that share one TiledMeta
+(``dcora_tpu_torch.parallel.rbcd``) is one [r_pad, A, kpad] tensor, agent a
+at scalar columns [a kpad, (a+1) kpad) of the [r_pad, A kpad] view: the
+per-pose ops here take it as it is, its preconditioner leaves carry a
+leading agent axis, and its block-diagonal strip CSR serves every agent in
+one kernel launch per product.
 
 Not ported from the JAX module: the planar layout and its Newton-Schulz
 retraction (TPU lane-relayout workarounds) and the scan chunking with its
@@ -524,9 +530,10 @@ def apply_tiled(TP: TiledProblem, Xf: torch.Tensor) -> torch.Tensor:
     grouped kernel on the compacted paired packs when the build made them
     and the strip kernel otherwise (their plain versions on the CPU)."""
     Q = TP.Q
+    X2 = Xf.reshape(Xf.shape[0], -1).contiguous()  # a stack: [r_pad, A kpad]
     if Q.pairs is not None:
-        return spmm_paired(Q.pairs, Xf.contiguous())
-    return spmm_sym(Q.strips, Xf.contiguous())
+        return spmm_paired(Q.pairs, X2).view(Xf.shape)
+    return spmm_sym(Q.strips, X2).view(Xf.shape)
 
 
 def to_flat(TP: TiledProblem, X: RAState, r_pad: Optional[int] = None
@@ -550,20 +557,21 @@ def from_flat(TP: TiledProblem, Xf: torch.Tensor, r: Optional[int] = None
 
 
 def _pose3(meta: TiledMeta, Xf: torch.Tensor) -> torch.Tensor:
-    """[r, n, dh] view of the pose section (writes go through to Xf)."""
-    return Xf[:, :meta.pose_end].view(Xf.shape[0], meta.n, meta.dh)
+    """[r, n, dh] view of the pose section (writes go through to Xf);
+    [r, A, n, dh] of a stack."""
+    return Xf[..., :meta.pose_end].view(*Xf.shape[:-1], meta.n, meta.dh)
 
 
 def _sph(meta: TiledMeta, Xf: torch.Tensor) -> torch.Tensor:
-    return Xf[:, meta.pose_end:meta.sph_end]
+    return Xf[..., meta.pose_end:meta.sph_end]
 
 
 def _sym_gram(meta: TiledMeta, Xf: torch.Tensor, Vf: torch.Tensor):
     """sym(Y_i^T V_i) per pose as [n, d, d]."""
     d = meta.d
-    S = torch.einsum("rna,rnb->nab", _pose3(meta, Xf)[..., :d],
+    S = torch.einsum("r...na,r...nb->...nab", _pose3(meta, Xf)[..., :d],
                      _pose3(meta, Vf)[..., :d])
-    return 0.5 * (S + S.transpose(1, 2))
+    return 0.5 * (S + S.transpose(-1, -2))
 
 
 def tangent_project_flat(meta: TiledMeta, Xf: torch.Tensor,
@@ -573,7 +581,8 @@ def tangent_project_flat(meta: TiledMeta, Xf: torch.Tensor,
     d = meta.d
     out = Vf.clone()
     _pose3(meta, out)[..., :d] -= torch.einsum(
-        "rnb,nba->rna", _pose3(meta, Xf)[..., :d], _sym_gram(meta, Xf, Vf))
+        "r...nb,...nba->r...na", _pose3(meta, Xf)[..., :d],
+        _sym_gram(meta, Xf, Vf))
     if meta.l:
         Xs, Vs = _sph(meta, Xf), _sph(meta, Vf)
         _sph(meta, out)[:] = Vs - Xs * (Xs * Vs).sum(0, keepdim=True)
@@ -598,7 +607,7 @@ def weingarten_apply(meta: TiledMeta, eta: torch.Tensor, aux
     d = meta.d
     out = torch.zeros_like(eta)
     _pose3(meta, out)[..., :d] = torch.einsum(
-        "rnb,nab->rna", _pose3(meta, eta)[..., :d], Ssym)
+        "r...nb,...nab->r...na", _pose3(meta, eta)[..., :d], Ssym)
     if meta.l:
         _sph(meta, out)[:] = _sph(meta, eta) * s_inner
     return out
@@ -607,10 +616,9 @@ def weingarten_apply(meta: TiledMeta, eta: torch.Tensor, aux
 def _precondition_tiles(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
     """Tile-granularity block-Jacobi: one batched [nt, T, T] product."""
     meta = TP.meta
-    r_pad = Vf.shape[0]
-    V3 = Vf.reshape(r_pad, meta.nt, meta.T)
-    W = torch.einsum("rct,cts->rcs", V3, TP.diag_inv.to(Vf.dtype))
-    return W.reshape(r_pad, meta.kpad)
+    V3 = Vf.reshape(*Vf.shape[:-1], meta.nt, meta.T)
+    W = torch.einsum("r...ct,...cts->r...cs", V3, TP.diag_inv.to(Vf.dtype))
+    return W.reshape(Vf.shape)
 
 
 def _precondition_btd(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
@@ -725,11 +733,11 @@ def precondition_flat(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
     meta = TP.meta
     out = Vf.clone()
     _pose3(meta, out)[:] = torch.einsum(
-        "rnc,nce->rne", _pose3(meta, Vf), TP.pose_inv.to(Vf.dtype))
+        "r...nc,...nce->r...ne", _pose3(meta, Vf), TP.pose_inv.to(Vf.dtype))
     if meta.l:
         _sph(meta, out)[:] = _sph(meta, Vf) * TP.sph_inv.to(Vf.dtype)
     if meta.b:
-        lm = out[:, meta.sph_end:meta.sph_end + meta.b]
+        lm = out[..., meta.sph_end:meta.sph_end + meta.b]
         lm *= TP.lmk_inv.to(Vf.dtype)
     return out
 
@@ -740,8 +748,8 @@ def retract_flat(meta: TiledMeta, Xf: torch.Tensor,
     d = meta.d
     out = Xf + Vf
     A = _pose3(meta, out)[..., :d]                         # [r, n, d]
-    Gm = torch.einsum("rna,rnb->nab", A, A)                # [n, d, d]
-    _pose3(meta, out)[..., :d] = torch.einsum("rnb,nba->rna", A,
+    Gm = torch.einsum("r...na,r...nb->...nab", A, A)      # [n, d, d]
+    _pose3(meta, out)[..., :d] = torch.einsum("r...nb,...nba->r...na", A,
                                               inv_sqrt_psd(Gm))
     if meta.l:
         S = _sph(meta, out)

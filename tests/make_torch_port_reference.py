@@ -14,7 +14,10 @@ seconds.  The 10,648-pose grid takes roughly twelve minutes on a CPU and
 the 500-pose RA set about seven; run them in the background.  The robust
 and multi-robot cases (gnc2500, gnc2500_dist, gnc2500_agent, mr_smallGrid3D,
 mr_ra500, mr_ra500_nl) go to torch_port_robust_reference.json with the lifting matrices
-the JAX agents draw from jax.random, which the port takes as inputs.
+the JAX agents draw from jax.random, which the port takes as inputs.  The
+synchronous-parallel RBCD cases (par_grid10k, par_ra500_nl, par_ra10k_nl:
+the central cost after every round, per backend) go to
+torch_port_parallel_reference.json.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ DIST_CUT = dict(rounds_per_rank=32, r_max=5, robust_inner_iters=6)
 OUT = os.path.join(HERE, "data", "torch_port_pgo_reference.json")
 OUT_RA = os.path.join(HERE, "data", "torch_port_ra_reference.json")
 OUT_ROBUST = os.path.join(HERE, "data", "torch_port_robust_reference.json")
+OUT_PARALLEL = os.path.join(HERE, "data",
+                            "torch_port_parallel_reference.json")
 
 # name -> (generator function name, keyword arguments)
 CASES = {
@@ -73,6 +78,12 @@ CASES = {
     "mr_ra500": ("generate_ra_slam_pyfg", dict(RA_KW, poses_per_robot=100)),
     "mr_ra500_nl": ("generate_ra_slam_pyfg",
                     dict(RA_KW, poses_per_robot=100, num_landmarks=0)),
+    # synchronous-parallel RBCD (OUT_PARALLEL)
+    "par_grid10k": ("generate_large_scale_g2o", dict(target_poses=10_000)),
+    "par_ra500_nl": ("generate_ra_slam_pyfg",
+                     dict(RA_KW, poses_per_robot=100, num_landmarks=0)),
+    "par_ra10k_nl": ("generate_ra_slam_pyfg",
+                     dict(RA_KW, poses_per_robot=1950, num_landmarks=0)),
 }
 ROBUST = ("gnc2500", "gnc2500_dist", "gnc2500_agent", "mr_smallGrid3D",
           "mr_ra500", "mr_ra500_nl")
@@ -265,6 +276,183 @@ def solve_mr_ra(path: str, cut=MR_RA_CUT):
                 final_theta=res.final_theta)
 
 
+# the parallel runs: agents, rounds and backends recorded per set (the
+# tiled backend at float64 tiles)
+PAR_RUNS = {"par_grid10k": dict(agents=8, rounds=30,
+                                backends=("edge", "tiled")),
+            "par_ra500_nl": dict(rounds=30, backends=("edge", "tiled")),
+            "par_ra10k_nl": dict(rounds=10, backends=("edge",))}
+
+
+def solve_parallel(name: str, path: str):
+    """The JAX scaling mode's central cost (2 f, as its drivers print it)
+    after each round, from the drivers' init (Chordal for PGO, odometry for
+    RA), on a one-device mesh (the JAX dry run shows an n-device mesh gives
+    the same blocks): dcora_tpu.drivers.parallel_{pgo,raslam}.run's loop
+    at check_every 1, per backend."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from dcora_tpu.core import lifted, problem as prob
+    from dcora_tpu.core.graph import LocalGraph
+    from dcora_tpu.core.lifted import RAState
+    from dcora_tpu.core.rtr import RTRConfig
+    from dcora_tpu.parallel import rbcd
+    from dcora_tpu.types import GraphType, MAP_ID
+
+    spec = PAR_RUNS[name]
+    cfg = RTRConfig(gradnorm_tol=1e-2, max_inner=50,
+                    single_accepted_step=True)
+    if path.endswith(".g2o"):
+        from dcora_tpu.core.init import chordal_initialization
+        from dcora_tpu.drivers.multi_robot_pgo import (
+            partition_measurements,
+            robot_slice,
+        )
+        from dcora_tpu.io import read_g2o_file
+
+        A, r = spec["agents"], 5
+        ds = read_g2o_file(path)
+        ms, n, d = ds.pose_pose_measurements, ds.num_poses, ds.dim
+        odo, priv, shared, _ = partition_measurements(ms, n, A)
+        graphs = []
+        for a in range(A):
+            g = LocalGraph(a, r, d)
+            g.set_measurements(odo[a] + priv[a] + shared[a])
+            graphs.append(g)
+        X = lifted.pad_rank(lifted.from_pose_array(
+            chordal_initialization(ms)), r)
+        states = [RAState(rot=X.rot[s:e], sph=X.sph[:0], trn=X.trn[s:e])
+                  for s, e in (robot_slice(n, A, a) for a in range(A))]
+        central = LocalGraph(0, r, d)
+        central.set_measurements(ms)
+
+        def glob(pp, Xb):
+            parts = rbcd.unpack_states(pp, Xb)
+            return RAState(rot=jnp.concatenate([s.rot for s in parts]),
+                           sph=jnp.zeros((0, r)),
+                           trn=jnp.concatenate([s.trn for s in parts]))
+    else:
+        from dcora_tpu.drivers.multi_robot_raslam import (
+            _scatter_agent_state,
+            _slice_agent_state,
+        )
+        from dcora_tpu.drivers.single_robot_raslam import (
+            odometry_init_global,
+        )
+        from dcora_tpu.io import read_pyfg_file
+        from dcora_tpu.io.remap import (
+            get_global_measurements,
+            get_robot_measurements,
+            robot_global_indices,
+        )
+
+        ds = read_pyfg_file(path)
+        gm = get_global_measurements(ds)
+        rm = get_robot_measurements(ds)
+        ridx = robot_global_indices(ds)
+        d = r = ds.dim
+        active = [rid for rid in sorted(ds.robot_IDs) if rid != MAP_ID]
+        A = len(active)
+        graphs = []
+        for rid in active:
+            g = LocalGraph(rid, r, d, GraphType.RangeAidedSLAMGraph)
+            g.set_measurements(rm[rid].relative_measurements)
+            graphs.append(g)
+        X0 = odometry_init_global(ds, gm)
+        states = [_slice_agent_state(X0, ridx[rid]) for rid in active]
+        gt = gm.ground_truth_init
+        central = LocalGraph(0, r, d, GraphType.RangeAidedSLAMGraph)
+        central.set_measurements(gm.relative_measurements)
+
+        def glob(pp, Xb):
+            out = (np.zeros((gt.n, r, d)), np.zeros((gt.l, r)),
+                   np.zeros((gt.n + gt.b, r)))
+            for a, part in enumerate(rbcd.unpack_states(pp, Xb)):
+                _scatter_agent_state(out, part, ridx[active[a]], gt.n)
+            return RAState(*(jnp.asarray(x) for x in out))
+
+    P = central.problem_data()
+    mesh = Mesh(np.array(jax.devices()[:1]), ("agents",))
+    rec = dict(agents=A, rank=r, rounds=spec["rounds"])
+    for backend in spec["backends"]:
+        pp = rbcd.build_parallel_problem(graphs, backend=backend,
+                                         tile_dtype=np.float64)
+        round_fn = rbcd.make_parallel_round(pp, cfg, mesh)
+        Xb = rbcd.pack_states(pp, states)
+        costs, iterates = [], []
+        t0 = time.time()
+        for _ in range(spec["rounds"]):
+            Xb, _ = round_fn(Xb)
+            iterates.append(Xb)
+            costs.append(2.0 * float(prob.cost(P, glob(pp, Xb))))
+        rec[backend] = dict(cost_trace=costs,
+                            seconds=round(time.time() - t0, 1))
+        port = np.array(_port_cpu_trace(name, path, backend, spec["rounds"]))
+        rec[backend]["port_cpu_rel"] = (np.abs(port - costs)
+                                        / np.abs(costs)).tolist()
+        if backend == "edge" and path.endswith(".g2o"):
+            rec[backend]["jax_alone_round2_rel"] = _jax_alone_spread(
+                pp, iterates[0], iterates[1], cfg)
+        print(name, backend, costs[0], costs[-1], "port on the CPU: max rel",
+              max(rec[backend]["port_cpu_rel"]), flush=True)
+    return rec
+
+
+def _port_cpu_trace(name: str, path: str, backend: str, rounds: int):
+    """The port's central cost after each round on the CPU, through its
+    driver (dcora_tpu_torch.drivers.parallel_{pgo,raslam}.run)."""
+    import torch
+
+    from dcora_tpu_torch.drivers import parallel_pgo, parallel_raslam
+
+    kw = dict(max_rounds=rounds, rgrad_norm_tol=0.0, check_every=1,
+              backend=backend, tile_dtype=torch.float64, device="cpu")
+    res = (parallel_pgo.run(PAR_RUNS[name]["agents"], path, **kw)
+           if path.endswith(".g2o") else parallel_raslam.run(path, **kw))
+    return [c for _, c, _ in res.trace]
+
+
+def _jax_alone_spread(pp, X1, X2, cfg):
+    """Per agent, the largest difference (relative to the largest entry)
+    between round 2 of the JAX vmapped round (X2, from X1) and the same
+    agent's update alone: the same G (its fixed states gathered from X1's
+    public buffers as the round does; PGO: every fixed translation is a
+    pose's) through dcora_tpu.parallel.rbcd._one_agent_update without
+    vmap.  The same arithmetic in another order: what an iterate's
+    round-to-round spread is made of."""
+    import jax
+
+    from dcora_tpu.core.lifted import RAState
+    from dcora_tpu.parallel.rbcd import _one_agent_update
+
+    B = pp.batched
+    A = pp.num_agents
+    rows = np.arange(A)[:, None]
+
+    def pad(x):
+        x = np.asarray(x)
+        return np.concatenate([x, np.zeros_like(x[:, :1])], 1)
+
+    pub_rot = pad(X1.rot)[rows, np.asarray(B.pub_pose_idx)]
+    pub_ptr = pad(X1.trn)[rows, np.asarray(B.pub_pose_idx)]
+    one = jax.jit(_one_agent_update, static_argnames=("cfg", "d"))
+    out = []
+    for a in range(A):
+        fps = np.asarray(B.fix_pose_src[a])
+        fts = np.asarray(B.fix_trans_src[a])
+        fixed = RAState(rot=pub_rot[fps[:, 0], fps[:, 1]],
+                        sph=np.zeros((0, X1.rot.shape[2])),
+                        trn=pub_ptr[fts[:, 0], fts[:, 1]])
+        sl = jax.tree.map(lambda x: x[a], (B.P, B.P_loc, B.M, X1))
+        Xa, _ = one(*sl[:3], sl[3], fixed, cfg, pp.d)
+        want = np.asarray(X2.rot[a])
+        out.append(float(np.abs(np.asarray(Xa.rot) - want).max()
+                         / np.abs(want).max()))
+    return out
+
+
 SOLVERS = {"gnc2500": solve_gnc, "gnc2500_dist": solve_gnc_dist,
            "gnc2500_agent": solve_gnc_agent, "mr_smallGrid3D": solve_mr,
            "mr_ra500": solve_mr_ra,
@@ -285,7 +473,9 @@ def main(names=None):
                 call["shape"] = tuple(call["shape"])
             getattr(datasets, gen)(path, **call)
             t0 = time.time()
-            if name in ROBUST:
+            if name in PAR_RUNS:
+                rec, dest = solve_parallel(name, path), OUT_PARALLEL
+            elif name in ROBUST:
                 rec, dest = SOLVERS[name](path), OUT_ROBUST
             else:
                 rec = (solve_ra if ra else solve)(path)

@@ -142,3 +142,173 @@ def torch_state(arrs, device="cpu"):
 
     return RAState(*(torch.as_tensor(a, dtype=torch.float64, device=device)
                      for a in arrs))
+
+
+# --------------------------------------------------------------------------
+# The parallel RBCD tests (tests/test_torch_parallel*.py): 4 agents of the
+# generated smallGrid3D set, and a generated 48-pose PyFG set without
+# landmarks (4 robots that range to each other)
+# --------------------------------------------------------------------------
+
+PAR_AGENTS = 4
+PAR_RA_KW = dict(num_robots=4, poses_per_robot=12, num_landmarks=0,
+                 range_prob=0.6, rot_noise=0.01, trans_noise=0.01,
+                 range_noise=0.01, seed=3)
+
+
+def rel_err(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.abs(a - b).max(initial=0)) / max(
+        float(np.abs(b).max(initial=0)), 1e-300)
+
+
+def parallel_pgo_graphs(engine, path, r=5):
+    if engine == "jax":
+        from dcora_tpu.core.graph import LocalGraph
+        from dcora_tpu.drivers.multi_robot_pgo import partition_measurements
+        from dcora_tpu.io import read_g2o_file
+    else:
+        from dcora_tpu_torch.core.graph import LocalGraph
+        from dcora_tpu_torch.drivers.multi_robot_pgo import (
+            partition_measurements,
+        )
+        from dcora_tpu_torch.io import read_g2o_file
+    ds = read_g2o_file(path)
+    ms = ds.pose_pose_measurements
+    odo, priv, shared, _ = partition_measurements(ms, ds.num_poses, PAR_AGENTS)
+    graphs = []
+    for a in range(PAR_AGENTS):
+        g = LocalGraph(a, r, ds.dim)
+        g.set_measurements(odo[a] + priv[a] + shared[a])
+        graphs.append(g)
+    return graphs
+
+
+def parallel_ra_graphs(engine, path):
+    if engine == "jax":
+        from dcora_tpu.core.graph import LocalGraph
+        from dcora_tpu.io import read_pyfg_file
+        from dcora_tpu.io.remap import get_robot_measurements
+        from dcora_tpu.types import GraphType, MAP_ID
+    else:
+        from dcora_tpu_torch.core.graph import LocalGraph
+        from dcora_tpu_torch.io import read_pyfg_file
+        from dcora_tpu_torch.io.remap import get_robot_measurements
+        from dcora_tpu_torch.types import GraphType, MAP_ID
+    ds = read_pyfg_file(path)
+    rm = get_robot_measurements(ds)
+    graphs = []
+    for rid in sorted(ds.robot_IDs):
+        if rid == MAP_ID:
+            continue
+        g = LocalGraph(rid, ds.dim, ds.dim, GraphType.RangeAidedSLAMGraph)
+        g.set_measurements(rm[rid].relative_measurements)
+        graphs.append(g)
+    return graphs
+
+
+class JaxParallelRun:
+    """The JAX package's edge rounds from the driver's init, with the
+    driver's central cost (2 f) after every round."""
+
+    def __init__(self, kind, path, rounds):
+        import jax.numpy as jnp
+        from jax.sharding import Mesh
+        import jax
+
+        from dcora_tpu.core import lifted, problem as prob
+        from dcora_tpu.core.graph import LocalGraph
+        from dcora_tpu.core.lifted import RAState
+        from dcora_tpu.core.rtr import RTRConfig
+        from dcora_tpu.parallel import rbcd
+
+        cfg = RTRConfig(gradnorm_tol=1e-2, max_inner=50,
+                        single_accepted_step=True)
+        if kind == "pgo":
+            from dcora_tpu.core.init import chordal_initialization
+            from dcora_tpu.drivers.multi_robot_pgo import robot_slice
+            from dcora_tpu.io import read_g2o_file
+
+            graphs = parallel_pgo_graphs("jax", path)
+            ds = read_g2o_file(path)
+            ms, n, r = ds.pose_pose_measurements, ds.num_poses, 5
+            X = lifted.pad_rank(lifted.from_pose_array(
+                chordal_initialization(ms)), r)
+            states = [RAState(rot=X.rot[s:e], sph=X.sph[:0], trn=X.trn[s:e])
+                      for s, e in (robot_slice(n, PAR_AGENTS, a)
+                                   for a in range(PAR_AGENTS))]
+            central = LocalGraph(0, r, ds.dim)
+            central.set_measurements(ms)
+
+            def glob(pp, Xb):
+                parts = rbcd.unpack_states(pp, Xb)
+                return RAState(rot=jnp.concatenate([s.rot for s in parts]),
+                               sph=jnp.zeros((0, r)),
+                               trn=jnp.concatenate([s.trn for s in parts]))
+        else:
+            from dcora_tpu.drivers.multi_robot_raslam import (
+                _scatter_agent_state,
+                _slice_agent_state,
+            )
+            from dcora_tpu.drivers.single_robot_raslam import (
+                odometry_init_global,
+            )
+            from dcora_tpu.io import read_pyfg_file
+            from dcora_tpu.io.remap import (
+                get_global_measurements,
+                robot_global_indices,
+            )
+            from dcora_tpu.types import GraphType, MAP_ID
+
+            graphs = parallel_ra_graphs("jax", path)
+            ds = read_pyfg_file(path)
+            gm = get_global_measurements(ds)
+            ridx = robot_global_indices(ds)
+            active = [rid for rid in sorted(ds.robot_IDs) if rid != MAP_ID]
+            X0 = odometry_init_global(ds, gm)
+            states = [_slice_agent_state(X0, ridx[rid]) for rid in active]
+            gt = gm.ground_truth_init
+            r = ds.dim
+            central = LocalGraph(0, r, ds.dim,
+                                 GraphType.RangeAidedSLAMGraph)
+            central.set_measurements(gm.relative_measurements)
+
+            def glob(pp, Xb):
+                out = (np.zeros((gt.n, r, ds.dim)), np.zeros((gt.l, r)),
+                       np.zeros((gt.n + gt.b, r)))
+                for a, part in enumerate(rbcd.unpack_states(pp, Xb)):
+                    _scatter_agent_state(out, part, ridx[active[a]], gt.n)
+                return RAState(*(jnp.asarray(x) for x in out))
+
+        self.pp = rbcd.build_parallel_problem(graphs)
+        mesh = Mesh(np.array(jax.devices()[:1]), ("agents",))
+        round_fn = rbcd.make_parallel_round(self.pp, cfg, mesh)
+        P = central.problem_data()
+        self.X0 = rbcd.pack_states(self.pp, states)
+        Xb, self.states, self.costs = self.X0, [], []
+        for _ in range(rounds):
+            Xb, _ = round_fn(Xb)
+            self.states.append(Xb)
+            self.costs.append(2.0 * float(prob.cost(P, glob(self.pp, Xb))))
+
+
+def torch_parallel_problem(kind, path):
+    """The port's ParallelRBCDProblem of the "pgo" or the "ra" set."""
+    from dcora_tpu_torch.parallel.rbcd import build_parallel_problem
+
+    graphs = (parallel_pgo_graphs("torch", path) if kind == "pgo"
+              else parallel_ra_graphs("torch", path))
+    return build_parallel_problem(graphs)
+
+
+def parallel_paths(data_dir, tmp_dir):
+    """{"pgo": smallGrid3D, "ra": the landmark-free PyFG set (made in
+    tmp_dir)}."""
+    import os
+
+    from dcora_tpu_torch import datasets
+
+    return dict(pgo=os.path.join(data_dir, "smallGrid3D.g2o"),
+                ra=datasets.generate_ra_slam_pyfg(
+                    os.path.join(tmp_dir, "ra_nl.pyfg"), **PAR_RA_KW))
