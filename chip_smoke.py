@@ -64,7 +64,20 @@ launch counts set to 0 just before it and read just after:
     engines cannot run a set with landmarks, and ra500 must raise JAX's
     KeyError), the round inside a one-rank NCCL group (bitwise the local
     round), the edge-sharded certificate (``parallel.certify``) against
-    the central one, and ``tools.scaling_bench`` over 1-16 agents.
+    the central one, and ``tools.scaling_bench`` over 1-16 agents;
+  * g2o100k, the 97,336-pose grid of ``generate_large_scale_g2o`` (46^3,
+    k = 389,344): read by the native parser (``dcora_tpu_torch.native``),
+    chordal init on the card, both ``build_tiled`` dtypes (host seconds and
+    peak RSS), kernel 1 against its plain version (``spmm_strips_plain``)
+    on its Q at f32 and f64 beside ``torch.sparse.mm``, the bound and the
+    profiler's device time, then the first rank's solve at the
+    ``tools.g2o100k_certify`` budget (rank 5, 200 outers x 50 tCG), one
+    launch of kernel 1 per tile product, Lambda(X) on the card and S's host
+    assembly, held to the independent verifier's cost (1e-8) and gradient
+    norm (the LDL^T proof and the staircase's climb run in the tool);
+  * the parity harness: ``tools.parity.run_config`` on the generated
+    tinyGrid3D and smallGrid3D sets, certified by the independent LDL^T
+    witness.
 
 Before the RA solves the kernel phase also holds the strip kernel against
 its plain version on the ra10k Q, beside ``torch.sparse.mm`` and the bound;
@@ -128,6 +141,7 @@ TCG_TOL = 1e-9
 # chordal init on the card against the CPU, relative to max|T| (two CG
 # solves to 1e-12 that sum in different orders)
 INIT_TOL = 1e-8
+G2O100K_POSES = 97_336  # generate_large_scale_g2o's default: a 46^3 grid
 # the centralized GNC's end state against JAX's.  Its last stages stop at
 # gradnorm 1e-2 of the weighted problem, and each stage's weights come from
 # the stage before, so every quantity of the end state but the rejected set
@@ -755,6 +769,187 @@ def init_phase(torch, path):
     require(err <= INIT_TOL, f"chordal init on the card differs from the "
             f"CPU's: rel {err:.2e}")
     return {k: v[0] for k, v in out.items()}
+
+
+def g2o100k_phase(torch, tmp):
+    """[g2o100k] The 97,336-pose grid (generate_large_scale_g2o, seed 100;
+    46^3) on the card: the native reader, chordal init, both build_tiled
+    dtypes (host seconds and peak RSS), kernel 1 against its plain version
+    (spmm_strips_plain, not the dense tiles) on its Q at f32 and f64, r_pad
+    8, beside torch.sparse.mm, the bound and the profiler's device time;
+    then the first rank's solve (rank 5, solvers.rtr_fast at the
+    g2o100k tool's budget: 200 outers, 50 tCG) from the chordal init,
+    Lambda(X) on the card and S's host assembly, each timed, held to the
+    independent verifier's own functions (cost, Riemannian gradient norm)
+    and the manifold.  Every tile product of the solve must launch kernel 1
+    once, and kernels 2 and 3 never.  Returns (kernel rows, launch counts).
+    The LDL^T proof and the staircase's climb run in
+    tools/g2o100k_certify.py, not here."""
+    import numpy as np
+
+    from dcora_tpu_torch import datasets, solvers
+    from dcora_tpu_torch import verification as V
+    from dcora_tpu_torch.core import lifted, spmm, tiled
+    from dcora_tpu_torch.core.certify import (
+        _assemble_S_host, dual_certificate_blocks)
+    from dcora_tpu_torch.core.graph import LocalGraph
+    from dcora_tpu_torch.core.init import chordal_initialization
+    from dcora_tpu_torch.core.manifold import manifold_error
+    from dcora_tpu_torch.io import read_g2o_file
+    from dcora_tpu_torch.tools import common
+    from dcora_tpu_torch.tools.g2o100k_certify import rss_peak
+    from dcora_tpu_torch.types import ROptParameters
+    from dcora_tpu_torch.utils.timing import PhaseTimer, SimpleTimer
+
+    pt, mem = PhaseTimer(), {}
+    with pt.phase("generate"):
+        path = datasets.generate_large_scale_g2o(
+            os.path.join(tmp, "g2o100k.g2o"))
+    with pt.phase("read"):
+        ds = read_g2o_file(path)
+    require(ds.reader == "native", f"g2o100k was read by the {ds.reader} "
+            "parser, not the native one")
+    ms = ds.pose_pose_measurements
+    require(ds.num_poses == G2O100K_POSES, f"g2o100k has {ds.num_poses} "
+            f"poses, not {G2O100K_POSES}")
+    g = LocalGraph(0, 5, 3)
+    g.set_measurements(ms)
+    P = g.problem_data(device="cuda")
+    iters = []
+    with pt.phase("init"):
+        T0 = chordal_initialization(ms, device="cuda", cg_iters=iters)
+    with pt.phase("precond"):
+        M = solvers.make_preconditioner(g, P)
+    tile_pc = solvers._tile_preconditioner(g, P)
+    reg = solvers.precond_reg(g, P) if tile_pc else 0.1
+    tps = {}
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).split(".")[-1]
+        with rss_peak(mem, dt), pt.phase(f"build {dt}"):
+            tps[dtype] = tiled.build_tiled(P, g.dims, dtype=dtype,
+                                           precond=M, reg=reg,
+                                           tile_precond=tile_pc)
+            torch.cuda.synchronize()
+    stats = common.q_stats(tps[torch.float64])
+    phase(f"[g2o100k] n={g.n} edges={len(ms)} k={g.dims.k} reader="
+          f"{ds.reader} precond={solvers.precond_build()}: generate "
+          f"{pt.ms['generate'] / 1e3:.2f}s, read {pt.ms['read'] / 1e3:.2f}s, "
+          f"chordal init on the card {pt.ms['init'] / 1e3:.2f}s (CG "
+          f"iterations {iters}), precond {pt.ms['precond'] / 1e3:.2f}s, "
+          f"build_tiled f32 {pt.ms['build float32'] / 1e3:.2f}s (host peak "
+          f"RSS {mem['float32']:.2f} GB), f64 "
+          f"{pt.ms['build float64'] / 1e3:.2f}s ({mem['float64']:.2f} GB); "
+          f"{stats}; device memory {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB")
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype, TP in tps.items():
+        Q, kpad = TP.Q, TP.meta.kpad
+        csr, stored_nnz = common.symmetric_csr(Q, kpad)
+        X = torch.randn((8, kpad), generator=gen, dtype=dtype,
+                        device="cuda")
+        Xt = X.t().contiguous()
+        cases = {"spmm_sym": (
+            lambda: spmm.spmm_sym(Q.strips, X),  # noqa: B023
+            lambda: spmm.spmm_strips_plain(Q.strips, X))}  # noqa: B023
+        ref = spmm.spmm_strips_plain(Q.strips, X)
+        bound = common.spmm_bound_ms(stored_nnz, csr.values().numel(), 8,
+                                     kpad, dtype, hbm_gbs(torch))
+        rows += compare_and_time(
+            torch, "g2o100k", cases,
+            lambda: torch.sparse.mm(csr, Xt),  # noqa: B023
+            ref, X, 8, bound)
+        dev_ms = common.device_ms(
+            lambda: spmm.spmm_sym(Q.strips, X))  # noqa: B023
+        rows[-1]["device_ms"] = dev_ms
+        phase(f"[g2o100k] kernel 1 {str(dtype).split('.')[-1]} r_pad=8: "
+              f"device {dev_ms:.4f} ms per product (torch.profiler), "
+              f"{rows[-1]['bound_ms'] / dev_ms:.1%} of its bound "
+              f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); "
+              f"stored nnz {stored_nnz}, full nnz {csr.values().numel()}")
+        del csr, Xt, ref
+    # the first rank's solve at the tool's budget, from the chordal init
+    X0 = lifted.pad_rank(lifted.from_pose_array(T0, device="cuda"), 5)
+    cfg = solvers.rtr_config_from_params(ROptParameters(
+        gradnorm_tol=1e-4, RTR_iterations=200, RTR_tCG_iterations=50))
+    cache = solvers.TileCache(f32=tps[torch.float32],
+                              f64=tps[torch.float64])
+    products, restore = counting_products(tiled)
+    try:
+        spmm.reset_launches()
+        with pt.phase("solve"):
+            res, _ = solvers.rtr_fast(g, P, M, X0, cfg, TP=cache)
+            torch.cuda.synchronize()
+        counts = spmm.launch_counts()
+    finally:
+        restore()
+    del cache, tps
+    timer = SimpleTimer()
+    timer.tic()
+    C = dual_certificate_blocks(P, res.X)
+    lambda_ms = timer.toc(block_on=C)
+    with rss_peak(mem, "S"), pt.phase("S"):
+        S = _assemble_S_host(P, C, g.dims)
+    # the independent verifier's own cost and gradient norm (scipy Q)
+    with pt.phase("verifier"):
+        Qv = V.sparse_Q_ra(*V.split_measurements(ms), g.n, 0, 0, 3)
+        Xf = lifted.to_flat(res.X).cpu().numpy()
+        f_v = 0.5 * float(np.sum((Xf @ Qv) * Xf))
+        gn_v = V.riemannian_gradnorm(Qv, Xf, g.n, 0, 3)
+    f_e, gn_e = float(res.f_final), float(res.gradnorm_final)
+    rel_f = abs(f_v - f_e) / abs(f_v)
+    rel_gn = abs(gn_v - gn_e) / max(gn_v, 1.0)
+    man = float(manifold_error(res.X))
+    phase(f"[g2o100k] rank-5 solve (rtr_fast, 200 outers x 50 tCG): "
+          f"{pt.ms['solve'] / 1e3:.2f}s, f={f_e!r} gradnorm={gn_e:.3e} "
+          f"outers {res.outer_iters}; verifier f={f_v!r} (rel {rel_f:.1e}), "
+          f"gradnorm {gn_v:.3e} (|diff| {abs(gn_v - gn_e):.1e}, rel "
+          f"{abs(gn_v - gn_e) / gn_v:.1e}), manifold error {man:.1e}; "
+          f"Lambda(X) on the card {lambda_ms:.2f} ms, S host assembly "
+          f"{pt.ms['S'] / 1e3:.2f}s (nnz {S.nnz}, peak RSS {mem['S']:.2f} "
+          f"GB), verifier {pt.ms['verifier'] / 1e3:.2f}s; tile products "
+          f"{products[0]}, launches {counts}")
+    require(rel_f <= 1e-8, f"g2o100k: the engine's cost {f_e!r} is not the "
+            f"verifier's {f_v!r} (rel {rel_f:.2e} > 1e-8)")
+    # relative above 1, absolute below (as [raslam]): near the optimum the
+    # gradient is what is left of sums of terms ~1e6 in size, so each
+    # engine's rounding is ~1e-7 in absolute terms
+    require(rel_gn <= 1e-6, f"g2o100k: the gradient norm {gn_e!r} is not "
+            f"the verifier's {gn_v!r}")
+    require(man <= 1e-10, f"g2o100k: manifold error {man:.2e}")
+    require(bool(np.isfinite(Xf).all()) and Xf.shape == (5, g.dims.k),
+            "g2o100k: bad state shape or values")
+    require(counts["spmm_sym"] == products[0] > 0,
+            f"g2o100k: kernel 1 did not run once per tile product: "
+            f"{counts}, {products[0]} products")
+    require(counts["spmm_paired"] == 0 and counts["spmm_symmetric"] == 0,
+            f"g2o100k: the solve launched another SpMM kernel: {counts}")
+    del S, C, P, res
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
+def parity_phase(torch, tmp):
+    """[parity] tools.parity.run_config on tinyGrid3D and smallGrid3D (the
+    generated test sets) on the card: the staircase, rounding and the
+    independent verifier, whose LDL^T witness must certify."""
+    from dcora_tpu_torch import datasets
+    from dcora_tpu_torch.tools import parity
+
+    data = datasets.ensure_test_datasets(os.path.join(tmp, "parity_data"))
+    for name in ("tinyGrid3D", "smallGrid3D"):
+        t0 = time.perf_counter()
+        rec = parity.run_config(name, data, "cuda", state_dir=os.path.join(
+            tmp, "parity_state"), checkpoint_dir=tmp)
+        phase(f"[parity] {name}: certified={rec['certified']} "
+              f"certified_indep={rec['certified_indep']} rank="
+              f"{rec['final_rank']} f*={rec['f_final']!r} (scipy "
+              f"{rec['f_indep']!r}), indep gradnorm "
+              f"{rec['gradnorm_indep']:.2e}, ATE {rec.get('ate_vs_gt')}, "
+              f"platform {rec['platform']!r}, "
+              f"{time.perf_counter() - t0:.2f}s")
+        require(rec["certified_indep"] is True and rec["certified"],
+                f"[parity] {name} is not certified")
 
 
 def _robust_refs():
@@ -1568,6 +1763,7 @@ def main() -> int:
             ra_refs = json.load(fh)
     rows, counts, paired, benched, ra = [], {}, {}, {}, {}
     gnc_counts, agent_counts, par_counts, par_ra_counts = {}, {}, {}, {}
+    g2o_counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
         for name in ("smallGrid3D", "grid10k"):
@@ -1599,6 +1795,8 @@ def main() -> int:
 
         rows = kernel_phase(torch, paths["grid10k"])
         init_phase(torch, paths["grid10k"])
+        g2o_rows, g2o_counts = g2o100k_phase(torch, tmp)
+        rows += g2o_rows
         os.environ.pop("DCORA_SPMM_PACK", None)  # the default strip pack
         products, restore = counting_products(tiled)
         try:
@@ -1618,6 +1816,7 @@ def main() -> int:
                 f"{counts}")
         phase(f"[launches] default pack: {counts}, {products[0]} tile "
               f"products (10,648-pose grid wall {walls['grid10k']:.2f}s)")
+        parity_phase(torch, tmp)
         paired = paired_phase(torch, paths["grid10k"], refs["grid10k"])
         benched = bench_phase(torch, paths["grid10k"])
         gnc_counts, gnc_ms, _ = gnc_phase(torch, tmp, robust_refs)
@@ -1663,12 +1862,13 @@ def main() -> int:
     # the row each kernel's path launches most: f64 at r_pad 8 on the grid
     # for the certified solves (the f64-tile phase's tCG product), f32 at
     # r_pad 8 for spmm_bench; kernel 1's launches are those of the PGO, the
-    # GNC (centralized and the agent's init), the RA solves and the
-    # parallel rounds (PGO and RA) together
+    # GNC (centralized and the agent's init), the RA solves, the parallel
+    # rounds (PGO and RA) and the g2o100k solve together
     launches = dict(spmm_sym=counts["spmm_sym"] + sum(
                         c["spmm_sym"] for c, _ in ra.values())
                     + gnc_counts["spmm_sym"] + agent_counts["spmm_sym"]
-                    + par_counts["spmm_sym"] + par_ra_counts["spmm_sym"],
+                    + par_counts["spmm_sym"] + par_ra_counts["spmm_sym"]
+                    + g2o_counts["spmm_sym"],
                     spmm_tile=benched["spmm_symmetric"],
                     spmm_paired=paired["spmm_paired"])
     phase("[launches] spmm_sym per path: " + ", ".join(
@@ -1676,7 +1876,8 @@ def main() -> int:
          f"gnc agent init {agent_counts['spmm_sym']}"]
         + [f"{k} {c['spmm_sym']}" for k, (c, _) in ra.items()]
         + [f"parallel grid10k {par_counts['spmm_sym']}",
-           f"parallel ra {par_ra_counts['spmm_sym']}"]))
+           f"parallel ra {par_ra_counts['spmm_sym']}",
+           f"g2o100k {g2o_counts['spmm_sym']}"]))
     main_dtype = dict(spmm_sym="float64", spmm_tile="float32",
                       spmm_paired="float64")
     entries = []

@@ -51,6 +51,7 @@ from dcora_tpu_torch.core.rtr import RA_BACKEND
 from dcora_tpu_torch.measurements import RelativePosePoseMeasurement
 from dcora_tpu_torch.solvers import (
     SolveRobustPGOParams,
+    make_preconditioner,
     precond_reg,
     resolve_device,
     robust_single_rotation_averaging,
@@ -585,9 +586,8 @@ class Agent:
         # JAX package's gathers clamp the neighbor slots onto the zero pad
         # and its segment sums drop them, which is what the remap does)
         g = self.graph
-        self._cached_M = prob.build_preconditioner_host(
-            self._cached_P, g.n, g.l, g.b, g.d,
-            precond_reg(g, self._cached_P_local))
+        self._cached_M = make_preconditioner(
+            g, self._cached_P, precond_reg(g, self._cached_P_local))
         self._cached_graph = None
         self._cache_version = self.graph.version
 

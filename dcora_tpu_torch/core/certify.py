@@ -375,6 +375,8 @@ def _min_eig_host(P: ProblemData, C: Certificate, dims: ProblemDims,
     S = _assemble_S_host(P, C, dims)
 
     if eta > 0:
+        logging.getLogger(__name__).info(
+            "host LDL^T proof of S + eta I: k=%d, nnz=%d", k, S.nnz)
         proof = ldl_psd_proof(S + eta * sp.identity(k, format="csr"))
         if proof is True:
             return True, 0.0, None

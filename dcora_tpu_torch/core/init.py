@@ -67,23 +67,27 @@ CG_READ_EVERY = 32
 
 
 def cg(A: Callable, b: torch.Tensor, M: Callable, tol: float,
-       maxiter: int) -> torch.Tensor:
+       maxiter: int, iters: Optional[list] = None) -> torch.Tensor:
     """Preconditioned CG from x0 = 0, stopping once ||r||^2 <= tol^2 ||b||^2
     (the rule and update order of jax.scipy.sparse.linalg.cg).
 
     Every update is masked by that rule, so iterations issued after the
     stopping one change nothing, and the host reads the rule only every
-    CG_READ_EVERY iterations."""
+    CG_READ_EVERY iterations.  When `iters` is a list, the count of
+    iterations that updated x is appended to it."""
     atol2 = tol * tol * torch.sum(b * b)
     x = torch.zeros_like(b)
     r = b.clone()
     z = M(r)
     p = z
     gamma = torch.sum(r * z)
+    n_live = torch.zeros((), dtype=torch.int64, device=b.device)
     for it in range(maxiter):
         live = torch.sum(r * r) > atol2
         if it % CG_READ_EVERY == 0 and not bool(live):
             break
+        if iters is not None:
+            n_live += live
         Ap = A(p)
         alpha = gamma / torch.sum(p * Ap)
         x = torch.where(live, x + alpha * p, x)
@@ -93,10 +97,13 @@ def cg(A: Callable, b: torch.Tensor, M: Callable, tol: float,
         p = torch.where(live, z_new + (gamma_new / gamma) * p, p)
         r = torch.where(live, r_new, r)
         gamma = torch.where(live, gamma_new, gamma)
+    if iters is not None:
+        iters.append(int(n_live))
     return x
 
 
-def _chordal_rotations(ii, jj, Rm, kappa, n: int) -> torch.Tensor:
+def _chordal_rotations(ii, jj, Rm, kappa, n: int,
+                       iters: Optional[list] = None) -> torch.Tensor:
     """Pinned rotation Laplacian system (row 0 fixed to I), Jacobi-PCG."""
     d = Rm.shape[1]
 
@@ -119,11 +126,12 @@ def _chordal_rotations(ii, jj, Rm, kappa, n: int) -> torch.Tensor:
     b = torch.where(mask, -lap(X0), 0.0)
     deg = _seg(torch.cat([kappa, kappa]), torch.cat([ii, jj]), n)
     deg = torch.where(deg == 0, 1.0, deg)[:, None, None]
-    x = cg(A, b, lambda v: v / deg, tol=1e-12, maxiter=20 * n)
+    x = cg(A, b, lambda v: v / deg, tol=1e-12, maxiter=20 * n, iters=iters)
     return X0 + x
 
 
-def _recover_translations(ii, jj, tm, tau, R, n: int) -> torch.Tensor:
+def _recover_translations(ii, jj, tm, tau, R, n: int,
+                          iters: Optional[list] = None) -> torch.Tensor:
     """Pinned translation Laplacian (reference: recoverTranslations,
     DCORA_utils.cpp:1633-1659)."""
 
@@ -142,14 +150,18 @@ def _recover_translations(ii, jj, tm, tau, R, n: int) -> torch.Tensor:
     b = torch.where(mask, rhs, 0.0)
     deg = _seg(torch.cat([tau, tau]), torch.cat([ii, jj]), n)
     deg = torch.where(deg == 0, 1.0, deg)[:, None]
-    return cg(A, b, lambda v: v / deg, tol=1e-12, maxiter=20 * n)
+    return cg(A, b, lambda v: v / deg, tol=1e-12, maxiter=20 * n,
+              iters=iters)
 
 
 def chordal_initialization(measurements: List[RelativePosePoseMeasurement],
-                           device="cuda") -> np.ndarray:
+                           device="cuda",
+                           cg_iters: Optional[list] = None) -> np.ndarray:
     """Chordal initialization -> [n, d, d+1] (reference:
     DCORA_solver.cpp:218-268), solved on `device` (the card unless the
-    caller asks for the CPU; raises when CUDA is absent)."""
+    caller asks for the CPU; raises when CUDA is absent).  When `cg_iters`
+    is a list, the CG iterations of the rotation and of the translation
+    solve are appended to it."""
     device = resolve_device(device)
     if not measurements:
         raise ValueError("no measurements")
@@ -163,9 +175,9 @@ def chordal_initialization(measurements: List[RelativePosePoseMeasurement],
     kappa = torch.as_tensor([m.kappa * m.weight for m in measurements], **f64)
     tau = torch.as_tensor([m.tau * m.weight for m in measurements], **f64)
 
-    X = _chordal_rotations(ii, jj, Rm, kappa, n)
+    X = _chordal_rotations(ii, jj, Rm, kappa, n, cg_iters)
     R = rotation_project(X)
-    t = _recover_translations(ii, jj, tm, tau, R, n)
+    t = _recover_translations(ii, jj, tm, tau, R, n, cg_iters)
 
     T = np.zeros((n, d, d + 1))
     T[:, :, :d] = R.cpu().numpy()

@@ -28,11 +28,26 @@ def _sym(P: torch.Tensor) -> torch.Tensor:
     return 0.5 * (P + P.transpose(-1, -2))
 
 
+# cuSOLVER's batched eigh (syevBatched) refuses batches of 97,336 and of
+# 32,768 3x3 float32 matrices (CUSOLVER_STATUS_INVALID_VALUE from its
+# bufferSize query, CUDA 12.8 on one H100) and takes 10,648; larger
+# batches go in pieces of this many
+EIGH_BATCH = 8192
+
+
+def _eigh(G: torch.Tensor):
+    if not G.is_cuda or G.dim() < 3 or G.shape[0] <= EIGH_BATCH:
+        return torch.linalg.eigh(G)
+    parts = [torch.linalg.eigh(g) for g in torch.split(G, EIGH_BATCH)]
+    return (torch.cat([w for w, _ in parts]),
+            torch.cat([U for _, U in parts]))
+
+
 def inv_sqrt_psd(G: torch.Tensor) -> torch.Tensor:
     """Batched inverse matrix square root of small SPD matrices via eigh.
     A zero block (a padded pose of a stack of agents) maps to a finite
     matrix, so its zero state stays zero under the polar retraction."""
-    w, U = torch.linalg.eigh(G)
+    w, U = _eigh(G)
     floor = 1e-300 if w.dtype == torch.float64 else torch.finfo(w.dtype).tiny
     inv_sqrt_w = 1.0 / torch.sqrt(torch.clamp(w, min=floor))
     # U diag(w^-1/2) U^T as one batched matmul (a three-operand einsum pays

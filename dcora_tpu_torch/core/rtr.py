@@ -35,7 +35,8 @@ RBCD of ``dcora_tpu_torch.parallel.rbcd``), with one radius, try count
 and tCG stopping state per agent; ``rgd_step`` is the agents' RGD
 alternative.  Not ported: ``rtr_chunked``
 (a TPU RPC-watchdog workaround), RSD (no agent's ``ROptMethod`` reaches
-it) and the float32 tCG option.
+it) and ``RTRConfig.tcg_f32``, the float32 tCG option (no driver, tool or
+config field of either package sets it).
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ preconditioner M, and ``--init random`` draws from a ``torch.Generator``
 
 Usage: python -m dcora_tpu_torch.drivers.multi_robot_pgo NUM_ROBOTS file.g2o
        [--device cuda|cpu] [--init random|odometry|chordal] [--robust]
+       [--config FILE] [--set KEY=VALUE ...]
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from dcora_tpu_torch.agent import Agent
+from dcora_tpu_torch.config import DcoraConfig, resolve
 from dcora_tpu_torch.core import lifted, manifold, problem as prob
 from dcora_tpu_torch.core.certify import escape_saddle, fast_verification
 from dcora_tpu_torch.core.graph import LocalGraph
@@ -528,29 +530,46 @@ def main(argv=None):
     ap.add_argument("num_robots", type=int)
     ap.add_argument("g2o")
     ap.add_argument("--no-accel", action="store_true")
-    ap.add_argument("--iters", type=int, default=1000)
-    ap.add_argument("--rmin", type=int, default=5)
-    ap.add_argument("--rmax", type=int, default=100)
+    ap.add_argument("--iters", type=int, default=None,
+                    help="RBCD rounds (default: rbcd.num_iters, 1000)")
+    ap.add_argument("--rmin", type=int, default=None,
+                    help="lowest rank (default: staircase.r_min, 5)")
+    ap.add_argument("--rmax", type=int, default=None,
+                    help="highest rank (default: staircase.r_max, 100)")
     ap.add_argument("--init", default="random", choices=list(INIT_METHODS))
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--robust", action="store_true",
                     help="distributed GNC-TLS robust optimization")
-    ap.add_argument("--gnc-barc", type=float, default=5.0)
-    ap.add_argument("--weight-updates", type=int, default=10)
+    ap.add_argument("--gnc-barc", type=float, default=None,
+                    help="GNC barc (default: robust.GNCBarc, 5.0)")
+    ap.add_argument("--weight-updates", type=int, default=None,
+                    help="default: rbcd.robust_opt_num_weight_updates, 10")
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--device", default="cuda",
                     help="torch device to solve on (default: cuda)")
+    DcoraConfig.add_cli(ap)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    cfg = DcoraConfig.from_cli(args)
+    logger.info("config:\n%s", cfg.dump())
     rcp = None
     if args.robust:
-        rcp = RobustCostParameters(costType=RobustCostType.GNC_TLS,
-                                   GNCBarc=args.gnc_barc)
+        rcp = cfg.robust
+        rcp.costType = RobustCostType.GNC_TLS
+        rcp.GNCBarc = resolve(args.gnc_barc, rcp.GNCBarc)
     res = run(
-        args.num_robots, args.g2o, acceleration=not args.no_accel,
-        num_iters=args.iters, r_min=args.rmin, r_max=args.rmax,
+        args.num_robots, args.g2o,
+        acceleration=(not args.no_accel) and cfg.rbcd.acceleration,
+        num_iters=resolve(args.iters, cfg.rbcd.num_iters),
+        r_min=resolve(args.rmin, cfg.staircase.r_min),
+        r_max=resolve(args.rmax, cfg.staircase.r_max),
+        rgrad_norm_tol=cfg.rbcd.rgrad_norm_tol,
+        min_eig_num_tol=cfg.staircase.min_eig_num_tol,
         init_method=INIT_METHODS[args.init], verbose=args.verbose,
-        robust_cost_params=rcp, robust_weight_updates=args.weight_updates,
+        robust_cost_params=rcp,
+        robust_weight_updates=resolve(
+            args.weight_updates, cfg.rbcd.robust_opt_num_weight_updates),
+        robust_inner_iters=cfg.rbcd.robust_opt_inner_iters,
         checkpoint_path=args.checkpoint, device=args.device,
     )
     print(

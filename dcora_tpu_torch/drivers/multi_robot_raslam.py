@@ -15,7 +15,7 @@ random`` draws from a ``torch.Generator`` seeded with ``seed`` where the
 JAX driver draws from ``jax.random``.
 
 Usage: python -m dcora_tpu_torch.drivers.multi_robot_raslam data.pyfg
-       [--device cuda|cpu]
+       [--device cuda|cpu] [--config FILE] [--set KEY=VALUE ...]
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from dcora_tpu_torch.agent import Agent
+from dcora_tpu_torch.config import DcoraConfig, resolve
 from dcora_tpu_torch.core import lifted, manifold, problem as prob
 from dcora_tpu_torch.core.certify import escape_saddle, fast_verification
 from dcora_tpu_torch.core.graph import LocalGraph
@@ -311,17 +312,29 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("pyfg")
     ap.add_argument("--no-accel", action="store_true")
-    ap.add_argument("--iters", type=int, default=1000)
-    ap.add_argument("--rmax", type=int, default=100)
-    ap.add_argument("--rule", default="Greedy", choices=["Greedy", "Uniform"])
+    ap.add_argument("--iters", type=int, default=None,
+                    help="RBCD rounds (default: rbcd.num_iters, 1000)")
+    ap.add_argument("--rmax", type=int, default=None,
+                    help="highest rank (default: staircase.r_max, 100)")
+    ap.add_argument("--rule", default=None, choices=["Greedy", "Uniform"],
+                    help="default: rbcd.block_selection_rule, Greedy")
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device to solve on (default: cuda)")
+    DcoraConfig.add_cli(ap)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    cfg = DcoraConfig.from_cli(args)
+    logger.info("config:\n%s", cfg.dump())
     res = run(
-        args.pyfg, acceleration=not args.no_accel, num_iters=args.iters,
-        r_max=args.rmax, block_selection_rule=BlockSelectionRule[args.rule],
+        args.pyfg,
+        acceleration=(not args.no_accel) and cfg.rbcd.acceleration,
+        num_iters=resolve(args.iters, cfg.rbcd.num_iters),
+        r_max=resolve(args.rmax, cfg.staircase.r_max),
+        rgrad_norm_tol=cfg.rbcd.rgrad_norm_tol,
+        min_eig_num_tol=cfg.staircase.min_eig_num_tol,
+        block_selection_rule=BlockSelectionRule[
+            resolve(args.rule, cfg.rbcd.block_selection_rule)],
         verbose=args.verbose, device=args.device,
     )
     print(

@@ -12,6 +12,7 @@ one launch of the strip kernel) and the edge path at float64 on the CPU.
 
 Usage: python -m dcora_tpu_torch.drivers.parallel_pgo NUM_AGENTS file.g2o
        [--device cuda|cpu] [--backend auto|edge|tiled]
+       [--config FILE] [--set KEY=VALUE ...]
        [--dist-url tcp://localhost:PORT --world-size W --dist-rank R]
 (or one process per rank under torchrun).
 """
@@ -19,10 +20,12 @@ Usage: python -m dcora_tpu_torch.drivers.parallel_pgo NUM_AGENTS file.g2o
 from __future__ import annotations
 
 import argparse
+import logging
 import time
 
 import torch
 
+from dcora_tpu_torch.config import DcoraConfig, resolve
 from dcora_tpu_torch.core import lifted, problem as prob
 from dcora_tpu_torch.core.device import resolve_device
 from dcora_tpu_torch.core.graph import LocalGraph
@@ -119,24 +122,33 @@ def run(num_agents: int, g2o_path: str, r: int = 5, max_rounds: int = 1000,
                           columns=pp.scalar_columns())
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("num_agents", type=int)
     ap.add_argument("g2o")
-    ap.add_argument("--rank", type=int, default=5)
-    ap.add_argument("--rounds", type=int, default=1000)
-    ap.add_argument("--tol", type=float, default=0.1)
+    ap.add_argument("--rank", type=int, default=None,
+                    help="default: staircase.r_min, 5")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="default: rbcd.num_iters, 1000")
+    ap.add_argument("--tol", type=float, default=None,
+                    help="default: rbcd.rgrad_norm_tol, 0.1")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "edge", "tiled"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--verbose", action="store_true")
     add_group_args(ap)
-    args = ap.parse_args()
+    DcoraConfig.add_cli(ap)
+    args = ap.parse_args(argv)
+    cfg = DcoraConfig.from_cli(args)
+    logging.getLogger(__name__).info("config:\n%s", cfg.dump())
     dev = resolve_device(args.device)
     group = init_group(dev, args.dist_url, args.world_size, args.dist_rank)
-    run(args.num_agents, args.g2o, r=args.rank, max_rounds=args.rounds,
-        rgrad_norm_tol=args.tol, verbose=args.verbose,
-        backend=args.backend, device=dev, group=group)
+    return run(args.num_agents, args.g2o,
+               r=resolve(args.rank, cfg.staircase.r_min),
+               max_rounds=resolve(args.rounds, cfg.rbcd.num_iters),
+               rgrad_norm_tol=resolve(args.tol, cfg.rbcd.rgrad_norm_tol),
+               verbose=args.verbose, backend=args.backend, device=dev,
+               group=group)
 
 
 if __name__ == "__main__":

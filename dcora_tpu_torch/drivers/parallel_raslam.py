@@ -15,16 +15,19 @@ robots range to each other.
 
 Usage: python -m dcora_tpu_torch.drivers.parallel_raslam data.pyfg
        [--device cuda|cpu] [--backend auto|edge|tiled]
+       [--config FILE] [--set KEY=VALUE ...]
        [--dist-url tcp://localhost:PORT --world-size W --dist-rank R]
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import time
 
 import torch
 
+from dcora_tpu_torch.config import DcoraConfig, resolve
 from dcora_tpu_torch.core import lifted, problem as prob
 from dcora_tpu_torch.core.device import resolve_device
 from dcora_tpu_torch.core.graph import LocalGraph
@@ -131,24 +134,31 @@ def run(pyfg_path: str, r: int = 0, max_rounds: int = 1000,
                           columns=pp.scalar_columns())
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("pyfg")
     ap.add_argument("--rank", type=int, default=0,
                     help="relaxation rank (default: d)")
-    ap.add_argument("--rounds", type=int, default=1000)
-    ap.add_argument("--tol", type=float, default=0.1)
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="default: rbcd.num_iters, 1000")
+    ap.add_argument("--tol", type=float, default=None,
+                    help="default: rbcd.rgrad_norm_tol, 0.1")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "edge", "tiled"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--verbose", action="store_true")
     add_group_args(ap)
-    args = ap.parse_args()
+    DcoraConfig.add_cli(ap)
+    args = ap.parse_args(argv)
+    cfg = DcoraConfig.from_cli(args)
+    logging.getLogger(__name__).info("config:\n%s", cfg.dump())
     dev = resolve_device(args.device)
     group = init_group(dev, args.dist_url, args.world_size, args.dist_rank)
-    run(args.pyfg, r=args.rank, max_rounds=args.rounds,
-        rgrad_norm_tol=args.tol, verbose=args.verbose,
-        backend=args.backend, device=dev, group=group)
+    return run(args.pyfg, r=args.rank,
+               max_rounds=resolve(args.rounds, cfg.rbcd.num_iters),
+               rgrad_norm_tol=resolve(args.tol, cfg.rbcd.rgrad_norm_tol),
+               verbose=args.verbose, backend=args.backend, device=dev,
+               group=group)
 
 
 if __name__ == "__main__":

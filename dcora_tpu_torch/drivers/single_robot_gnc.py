@@ -7,6 +7,7 @@ the CPU).
 
 Usage: python -m dcora_tpu_torch.drivers.single_robot_gnc file.g2o
        [--device cuda|cpu] [--log-dir DIR] [--gnc-barc 5.0]
+       [--config FILE] [--set KEY=VALUE ...]
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import logging
 import time
 from typing import Optional
 
+from dcora_tpu_torch.config import DcoraConfig, resolve
 from dcora_tpu_torch.io import read_g2o_file
 from dcora_tpu_torch.solvers import (
     SolveRobustPGOParams,
@@ -70,14 +72,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("g2o")
     ap.add_argument("--log-dir", default="")
-    ap.add_argument("--gnc-barc", type=float, default=5.0)
+    ap.add_argument("--gnc-barc", type=float, default=None,
+                    help="GNC barc (default: robust.GNCBarc, 5.0)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to solve on (default: cuda)")
+    DcoraConfig.add_cli(ap)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    run(args.g2o, log_directory=args.log_dir, device=args.device,
-        robust_params=RobustCostParameters(costType=RobustCostType.GNC_TLS,
-                                           GNCBarc=args.gnc_barc))
+    cfg = DcoraConfig.from_cli(args)
+    logging.getLogger(__name__).info("config:\n%s", cfg.dump())
+    rp = cfg.robust
+    rp.GNCBarc = resolve(args.gnc_barc, rp.GNCBarc)
+    return run(args.g2o, log_directory=args.log_dir, device=args.device,
+               robust_params=rp)
 
 
 if __name__ == "__main__":

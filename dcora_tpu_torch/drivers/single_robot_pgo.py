@@ -5,7 +5,8 @@ initialization followed by a Riemannian trust-region solve at rank d, or,
 with --certify, the Riemannian staircase that certifies global optimality.
 
 Usage: python -m dcora_tpu_torch.drivers.single_robot_pgo file.g2o
-       [--certify] [--device cuda|cpu] [--log-dir DIR]
+       [--certify] [--device cuda|cpu] [--log-dir DIR] [--r-max R]
+       [--eta ETA] [--config FILE] [--set KEY=VALUE ...]
 """
 
 from __future__ import annotations
@@ -17,11 +18,12 @@ from typing import Optional
 
 import numpy as np
 
+from dcora_tpu_torch.config import DcoraConfig, resolve
 from dcora_tpu_torch.core import lifted, problem as prob
 from dcora_tpu_torch.core.graph import LocalGraph
 from dcora_tpu_torch.core.init import chordal_initialization
 from dcora_tpu_torch.io import read_g2o_file
-from dcora_tpu_torch.solvers import resolve_device, solve_pgo
+from dcora_tpu_torch.solvers import precond_build, resolve_device, solve_pgo
 from dcora_tpu_torch.staircase import StaircaseResult, riemannian_staircase
 from dcora_tpu_torch.types import ROptParameters
 from dcora_tpu_torch.utils.logger import Logger
@@ -34,7 +36,8 @@ def run(g2o_path: str, certify: bool = False, log_directory: str = "",
     """Solve one g2o file; returns (T_out [n, d, d+1], f).
 
     When `result` is a dict, the staircase result (StaircaseResult under
-    "staircase") and the init/staircase wall times are stored into it."""
+    "staircase"), the init/staircase wall times and which host builds ran
+    ("reader" and "precond": "native" or "numpy") are stored into it."""
     dev = resolve_device(device)
     ds = read_g2o_file(g2o_path)
     ms = ds.pose_pose_measurements
@@ -57,7 +60,8 @@ def run(g2o_path: str, certify: bool = False, log_directory: str = "",
         f = float(prob.cost(g.problem_data(device=dev), res.rounded))
         if result is not None:
             result.update(staircase=res, init_s=t_init,
-                          staircase_s=res.elapsed_s)
+                          staircase_s=res.elapsed_s, reader=ds.reader,
+                          precond=precond_build())
         if verbose:
             print(f"solvePGO: certified={res.certified} "
                   f"rank={res.final_rank} f={f:.6f} "
@@ -83,12 +87,22 @@ def main(argv=None):
     ap.add_argument("--log-dir", default="")
     ap.add_argument("--device", default="cuda",
                     help="torch device to solve on (default: cuda)")
-    ap.add_argument("--r-max", type=int, default=20)
-    ap.add_argument("--eta", type=float, default=1e-3)
+    ap.add_argument("--r-max", type=int, default=None,
+                    help="highest staircase rank (default: "
+                    "staircase.r_max, at most 20)")
+    ap.add_argument("--eta", type=float, default=None,
+                    help="certificate tolerance (default: "
+                    "staircase.min_eig_num_tol)")
+    DcoraConfig.add_cli(ap)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    run(args.g2o, certify=args.certify, log_directory=args.log_dir,
-        r_max=args.r_max, eta=args.eta, device=args.device)
+    cfg = DcoraConfig.from_cli(args)
+    logging.getLogger(__name__).info("config:\n%s", cfg.dump())
+    return run(args.g2o, certify=args.certify, log_directory=args.log_dir,
+               opt_params=cfg.ropt,
+               r_max=resolve(args.r_max, cfg.staircase.r_max),
+               eta=resolve(args.eta, cfg.staircase.min_eig_num_tol),
+               device=args.device)
 
 
 if __name__ == "__main__":

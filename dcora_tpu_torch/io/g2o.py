@@ -13,8 +13,9 @@ Implemented with bulk numpy parsing: lines are grouped per record type and
 all floats of a group are converted in one ``np.loadtxt`` pass, which is
 10-50x faster than per-line float() on the 100k-edge benchmark files.
 
-This is the numpy parsing path of dcora_tpu.io.g2o; the ctypes parser of
-the native library is not part of the port yet.
+As in dcora_tpu.io.g2o, the native C++ parser (dcora_tpu_torch.native) is
+preferred when its library is built; the dataset's ``reader`` says which of
+the two read the file.
 """
 
 from __future__ import annotations
@@ -40,7 +41,41 @@ def _bulk_floats(lines, expected_cols: int) -> np.ndarray:
     return arr
 
 
+def _dataset_from_arrays(dim, v_ids, v_R, v_t, e_i, e_j, e_R, e_t,
+                         e_kappa, e_tau) -> G2ODataset:
+    """Assemble a G2ODataset from the native parser's flat arrays."""
+    ds = G2ODataset(dim=dim)
+    ds.reader = "native"
+    d = dim
+    for k in range(len(v_ids)):
+        T = np.zeros((d, d + 1))
+        T[:, :d] = v_R[k]
+        T[:, d] = v_t[k]
+        ds.ground_truth_poses[PoseID(0, int(v_ids[k]))] = T
+    max_idx = -1
+    for k in range(len(e_i)):
+        i, j = int(e_i[k]), int(e_j[k])
+        ds.pose_pose_measurements.append(
+            RelativePosePoseMeasurement(
+                r1=0, p1=i, r2=0, p2=j, R=e_R[k], t=e_t[k],
+                kappa=float(e_kappa[k]), tau=float(e_tau[k]),
+                fixedWeight=(i + 1 == j),
+            )
+        )
+        max_idx = max(max_idx, i, j)
+    ds.num_poses = max_idx + 1
+    return ds
+
+
 def read_g2o_file(filename: str) -> G2ODataset:
+    from dcora_tpu_torch import native
+
+    a = native.parse_g2o(filename)
+    if a is not None:
+        return _dataset_from_arrays(
+            a.dim, a.v_ids, a.v_R, a.v_t, a.e_i, a.e_j, a.e_R, a.e_t,
+            a.e_kappa, a.e_tau)
+
     ds = G2ODataset()
 
     v2, v3, e2, e3 = [], [], [], []

@@ -1,8 +1,8 @@
-"""PyFG file parser (numpy).
+"""PyFG file parser.
 
-Counterpart of ``dcora_tpu.io.pyfg``: its numpy path only.  The JAX
-package prefers its native library when one is built; the port has no
-native binding yet, so this parser is the only one here.
+Counterpart of ``dcora_tpu.io.pyfg``: as there, the native C++ parser
+(dcora_tpu_torch.native) is preferred when its library is built, and the
+numpy parser below runs otherwise; the dataset's ``reader`` says which.
 
 Behavioral parity with the reference parser (DCORA_utils.cpp:437-1167):
   * symbol decoding: 'A'..'Z' poses per robot; 'L'-prefixed landmarks
@@ -94,7 +94,104 @@ def _kappa(cov_R: np.ndarray) -> float:
     return 3.0 / (2.0 * np.trace(cov_R))
 
 
+def _dataset_from_native(a) -> PyFGDataset:
+    """Assemble a PyFGDataset from the native parser's flat arrays."""
+    ds = PyFGDataset()
+    ds.reader = "native"
+    ds.dim = d = a.dim
+
+    for k in range(len(a.gp_robot)):
+        robot, state = int(a.gp_robot[k]), int(a.gp_state[k])
+        ds.robot_IDs.add(robot)
+        T = np.zeros((d, d + 1))
+        T[:, :d] = a.gp_R[k]
+        T[:, d] = a.gp_t[k]
+        ds.ground_truth.poses[PoseID(robot, state)] = T
+        ds.robot_id_to_num_poses[robot] = (
+            ds.robot_id_to_num_poses.get(robot, 0) + 1
+        )
+        prev = ds.robot_id_to_first_pose_idx.get(robot, state)
+        ds.robot_id_to_first_pose_idx[robot] = min(prev, state)
+
+    for k in range(len(a.gl_robot)):
+        robot, state = int(a.gl_robot[k]), int(a.gl_state[k])
+        ds.robot_IDs.add(robot)
+        ds.ground_truth.landmarks[LandmarkID(robot, state)] = a.gl_t[k]
+        ds.robot_id_to_num_landmarks[robot] = (
+            ds.robot_id_to_num_landmarks.get(robot, 0) + 1
+        )
+        prev = ds.robot_id_to_first_landmark_idx.get(robot, state)
+        ds.robot_id_to_first_landmark_idx[robot] = min(prev, state)
+
+    for k in range(len(a.prp_robot)):
+        ds.measurements.pose_priors.append(
+            PosePrior(
+                r=int(a.prp_robot[k]), p=int(a.prp_state[k]),
+                R=a.prp_R[k], t=a.prp_t[k],
+                kappa=float(a.prp_kappa[k]), tau=float(a.prp_tau[k]),
+            )
+        )
+    for k in range(len(a.prl_robot)):
+        ds.measurements.landmark_priors.append(
+            LandmarkPrior(
+                r=int(a.prl_robot[k]), p=int(a.prl_state[k]),
+                t=a.prl_t[k], tau=float(a.prl_tau[k]),
+            )
+        )
+
+    # re-interleave relative measurements in file order via seq
+    rel = {}
+    for k in range(len(a.pp["seq"])):
+        rel[int(a.pp["seq"][k])] = RelativePosePoseMeasurement(
+            r1=int(a.pp["r1"][k]), p1=int(a.pp["p1"][k]),
+            r2=int(a.pp["r2"][k]), p2=int(a.pp["p2"][k]),
+            R=a.pp_R[k], t=a.pp_t[k],
+            kappa=float(a.pp_kappa[k]), tau=float(a.pp_tau[k]),
+        )
+    for k in range(len(a.pl["seq"])):
+        rel[int(a.pl["seq"][k])] = RelativePoseLandmarkMeasurement(
+            r1=int(a.pl["r1"][k]), p1=int(a.pl["p1"][k]),
+            r2=int(a.pl["r2"][k]), p2=int(a.pl["p2"][k]),
+            t=a.pl_t[k], tau=float(a.pl_tau[k]),
+        )
+    for k in range(len(a.rg["seq"])):
+        r1 = int(a.rg["r1"][k])
+        m = RangeMeasurement(
+            r1=r1, p1=int(a.rg["p1"][k]),
+            r2=int(a.rg["r2"][k]), p2=int(a.rg["p2"][k]),
+            stateType1=(StateType.Pose if int(a.rg["st1"][k]) == 0
+                        else StateType.Landmark),
+            stateType2=(StateType.Pose if int(a.rg["st2"][k]) == 0
+                        else StateType.Landmark),
+            l=int(a.rg["l"][k]), range=float(a.rg_range[k]),
+            precision=float(a.rg_prec[k]),
+        )
+        rel[int(a.rg["seq"][k])] = m
+        ds.ground_truth.unit_spheres[m.unit_sphere_id()] = a.rg_u[k]
+        ds.robot_id_to_num_unit_spheres[r1] = (
+            ds.robot_id_to_num_unit_spheres.get(r1, 0) + 1
+        )
+    ds.measurements.relative_measurements = [
+        rel[s] for s in sorted(rel)
+    ]
+
+    for robot in ds.robot_IDs:
+        for counter in (
+            ds.robot_id_to_num_poses,
+            ds.robot_id_to_num_landmarks,
+            ds.robot_id_to_num_unit_spheres,
+        ):
+            counter.setdefault(robot, 0)
+    return ds
+
+
 def read_pyfg_file(filename: str) -> PyFGDataset:
+    from dcora_tpu_torch import native
+
+    a = native.parse_pyfg(filename)
+    if a is not None:
+        return _dataset_from_native(a)
+
     ds = PyFGDataset()
     sphere_idx = {}  # robot id -> next unit sphere index
     seen_range_edges = set()

@@ -194,6 +194,10 @@ class G2ODataset:
     ground_truth_poses: Dict[StateID, np.ndarray] = dataclasses.field(
         default_factory=dict
     )
+    # which parser read the file: "native" (dcora_tpu_torch.native) or
+    # "numpy"; a class attribute, not a field, so the dataset's fields stay
+    # those of the JAX package's
+    reader = "numpy"
 
 
 @dataclasses.dataclass
@@ -213,3 +217,7 @@ class PyFGDataset:
     )
     measurements: Measurements = dataclasses.field(default_factory=Measurements)
     ground_truth: GroundTruth = dataclasses.field(default_factory=GroundTruth)
+    # which parser read the file: "native" (dcora_tpu_torch.native) or
+    # "numpy"; a class attribute, not a field, so the dataset's fields stay
+    # those of the JAX package's
+    reader = "numpy"

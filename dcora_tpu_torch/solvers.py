@@ -9,6 +9,7 @@ port's own rotation projection.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import List, Optional
 
@@ -72,12 +73,43 @@ def precond_reg(g: LocalGraph, P: prob.ProblemData) -> float:
     return float(prob.power_iteration_lambda_max(P, probe)) / (1e6 - 1.0)
 
 
-def make_preconditioner(g: LocalGraph, P: prob.ProblemData
-                        ) -> prob.Preconditioner:
+def precond_build() -> str:
+    """Which host build make_preconditioner runs: "native" (the C++
+    assembly of dcora_tpu_torch.native, when its library is built) or
+    "numpy"."""
+    from dcora_tpu_torch import native
+
+    return "native" if native.available() else "numpy"
+
+
+def make_preconditioner(g: LocalGraph, P: prob.ProblemData,
+                        reg: Optional[float] = None) -> prob.Preconditioner:
     """Factored block-Jacobi preconditioner of the local Q, built on the
-    host in numpy and placed on P's device."""
-    return prob.build_preconditioner_host(P, g.n, g.l, g.b, g.d,
-                                          precond_reg(g, P))
+    host and placed on P's device: by the native C++ assembly when its
+    library is built (as dcora_tpu.solvers.make_preconditioner; it leaves
+    out a prior's quadratic diagonal, as the JAX package's does), else in
+    numpy (prob.build_preconditioner_host).  precond_build() says which.
+    reg defaults to precond_reg(g, P)."""
+    from dcora_tpu_torch import native
+
+    if reg is None:
+        reg = precond_reg(g, P)
+    if not native.available():
+        return prob.build_preconditioner_host(P, g.n, g.l, g.b, g.d, reg)
+
+    def a(x):
+        return x.detach().cpu().numpy()
+
+    out = native.jacobi_precond(
+        g.n, g.l, g.b, g.d, reg,
+        a(P.pp_ri), a(P.pp_rj), a(P.pp_t), a(P.pp_kappa), a(P.pp_tau),
+        a(P.pp_w) * a(P.pp_active),
+        a(P.pl_ri), a(P.pl_tj), a(P.pl_t), a(P.pl_tau),
+        a(P.pl_w) * a(P.pl_active),
+        a(P.rg_ti), a(P.rg_tj), a(P.rg_q), a(P.rg_rho), a(P.rg_prec),
+        a(P.rg_w) * a(P.rg_active))
+    return prob.Preconditioner(*(torch.as_tensor(x, device=P.device)
+                                 for x in out))
 
 
 class TileCache:
@@ -94,9 +126,19 @@ def _tile_preconditioner(g: LocalGraph, P: prob.ProblemData):
     RA problems get the block-tridiagonal RCM-band factorization; PGO gets
     it too when the graph is chain-like (loop closures per pose < 0.2),
     where per-pose Jacobi leaves tCG badly conditioned, and the cheaper
-    per-pose blocks otherwise."""
-    if g.l > 0:
-        return "btd"
+    per-pose blocks otherwise.  Returns build_tiled's tile_precond: "btd",
+    True (the diagonal-tile Jacobi) or False (per-pose Jacobi).
+
+    DCORA_RA_PRECOND=btd|tile|pose overrides it on RA problems (any other
+    value than btd or pose means tile; pose hands an RA problem to the PGO
+    rule below), DCORA_PGO_PRECOND=btd|tile|pose on the rest (any other
+    value than btd or tile means pose), as in the JAX package."""
+    mode = os.environ.get("DCORA_RA_PRECOND", "btd")
+    if g.l > 0 and mode != "pose":
+        return "btd" if mode == "btd" else True
+    mode_pgo = os.environ.get("DCORA_PGO_PRECOND", "")
+    if mode_pgo:
+        return "btd" if mode_pgo == "btd" else mode_pgo == "tile"
     m_pp = int(P.pp_ri.shape[0])
     lc_ratio = max(m_pp - (g.n - 1), 0) / max(g.n, 1)
     return "btd" if lc_ratio < 0.2 else False

@@ -38,6 +38,7 @@ from dcora_tpu_torch.solvers import (
     rtr_fast,
 )
 from dcora_tpu_torch.types import ROptParameters
+from dcora_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -82,7 +83,8 @@ def riemannian_staircase(
 ) -> StaircaseResult:
     """Run the staircase on X0's device.  `generator` feeds the Lanczos
     breakdown restarts.  ``checkpoint_path`` persists (X, r) after every
-    solver call with torch.save and resumes from it when the file exists."""
+    solver call and every escape in the NPZ format of utils.checkpoint (the
+    JAX staircase's), and resumes from it when the file exists."""
     t_start = time.time()
     dev = X0.device
     opt_params = opt_params or ROptParameters(
@@ -109,8 +111,7 @@ def riemannian_staircase(
 
     def save(X, r):
         if checkpoint_path:
-            torch.save({"X": tuple(x.cpu() for x in X), "r": r},
-                       checkpoint_path)
+            save_checkpoint(checkpoint_path, X, r)
 
     if X0.r != r_min:
         raise ValueError(f"X0 has rank {X0.r}, expected r_min = {r_min}")
@@ -120,8 +121,7 @@ def riemannian_staircase(
     TP = None
     r = r_min
     if checkpoint_path and os.path.exists(checkpoint_path):
-        ck = torch.load(checkpoint_path)
-        X, r = RAState(*(x.to(dev) for x in ck["X"])), int(ck["r"])
+        X, r, _, _ = load_checkpoint(checkpoint_path, dev)
         logger.info("resuming staircase from checkpoint at rank %d", r)
 
     cfg = rtr_config_from_params(opt_params)
@@ -176,10 +176,14 @@ def riemannian_staircase(
                         float(res.f_final), float(res.gradnorm_final))
         save(X, r)
 
+        t_cert = time.time()
         is_psd, theta, v = timed(
             "certify", fast_verification, P, X, min_eig_num_tol,
             num_lanczos, TP=(TP.f32 if TP is not None else None),
             generator=generator)
+        if verbose:
+            logger.info("rank %d: certification %.1fs (psd=%s)", r,
+                        time.time() - t_cert, is_psd)
         if is_psd:
             certified = True
             break

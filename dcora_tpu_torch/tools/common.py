@@ -43,6 +43,12 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
+def platform(device) -> str:
+    """The records' "platform": the card's name and power limit for a
+    CUDA device, else "cpu"."""
+    return card() if torch.device(device).type == "cuda" else "cpu"
+
+
 def nominal_hbm_gbs(name: str):
     """The data-sheet HBM bandwidth of the named card, or None."""
     for key, gbs in NOMINAL_HBM_GBS:

@@ -391,3 +391,11 @@ def verify_solution(measurements, X, d: int,
         "certified_indep": certified,
         "manifold_err": feas,
     }
+
+
+def ate_vs_ground_truth(T_est: np.ndarray,
+                        T_gt: np.ndarray) -> Optional[float]:
+    """Umeyama-aligned ATE RMSE of trajectory translations."""
+    from dcora_tpu_torch.utils.evaluation import ate_rmse
+
+    return float(ate_rmse(T_est, T_gt))

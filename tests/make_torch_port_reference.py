@@ -17,7 +17,11 @@ mr_ra500, mr_ra500_nl) go to torch_port_robust_reference.json with the lifting m
 the JAX agents draw from jax.random, which the port takes as inputs.  The
 synchronous-parallel RBCD cases (par_grid10k, par_ra500_nl, par_ra10k_nl:
 the central cost after every round, per backend) go to
-torch_port_parallel_reference.json.
+torch_port_parallel_reference.json.  The tools' cases (tool_g2o512: the
+steps of tools/g2o100k_certify.py on an 8^3 grid of its generator;
+parity_tinyGrid3D and parity_ra_slam_test_3d: tools/parity.run_config on
+the generated test sets) go to torch_port_tools_reference.json (about a
+minute in all).
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ OUT_RA = os.path.join(HERE, "data", "torch_port_ra_reference.json")
 OUT_ROBUST = os.path.join(HERE, "data", "torch_port_robust_reference.json")
 OUT_PARALLEL = os.path.join(HERE, "data",
                             "torch_port_parallel_reference.json")
+OUT_TOOLS = os.path.join(HERE, "data", "torch_port_tools_reference.json")
 
 # name -> (generator function name, keyword arguments)
 CASES = {
@@ -84,6 +89,12 @@ CASES = {
                      dict(RA_KW, poses_per_robot=100, num_landmarks=0)),
     "par_ra10k_nl": ("generate_ra_slam_pyfg",
                      dict(RA_KW, poses_per_robot=1950, num_landmarks=0)),
+    # the tools (OUT_TOOLS)
+    "tool_g2o512": ("generate_large_scale_g2o", dict(target_poses=512)),
+    "parity_tinyGrid3D": ("generate_grid_g2o",
+                          dict(shape=[2, 2, 2], rot_noise=0.05,
+                               trans_noise=0.02, seed=11)),
+    "parity_ra_slam_test_3d": ("generate_ra_slam_pyfg", {}),
 }
 ROBUST = ("gnc2500", "gnc2500_dist", "gnc2500_agent", "mr_smallGrid3D",
           "mr_ra500", "mr_ra500_nl")
@@ -120,6 +131,80 @@ def solve(path: str):
                 rank=int(res.final_rank), f=f,
                 f_lifted=float(res.f_final),
                 ldl_witness=bool(rep["certified_indep"]))
+
+
+# the JAX g2o100k tool's parameters (tools/g2o100k_certify.py)
+TOOL_G2O = dict(rmin=5, rmax=8, tcg=50, eta=1e-3)
+
+
+def solve_g2o100k_tool(path: str):
+    """The body of the JAX package's tools/g2o100k_certify.py on `path`:
+    the staircase at its budget, then S's host assembly, the LDL^T proof,
+    the host min-eig path and the independent verifier."""
+    import scipy.sparse as sp
+
+    from dcora_tpu.core import lifted
+    from dcora_tpu.core.certify import (
+        _assemble_S_host, _min_eig_host, dual_certificate_blocks,
+        ldl_psd_proof)
+    from dcora_tpu.core.graph import LocalGraph
+    from dcora_tpu.core.init import chordal_initialization
+    from dcora_tpu.io import read_g2o_file
+    from dcora_tpu.staircase import riemannian_staircase
+    from dcora_tpu.types import ROptParameters
+    from dcora_tpu.verification import verify_solution
+
+    t = TOOL_G2O
+    ms = read_g2o_file(path).pose_pose_measurements
+    g = LocalGraph(0, t["rmin"], 3)
+    g.set_measurements(ms)
+    X0 = lifted.pad_rank(lifted.from_pose_array(
+        chordal_initialization(ms)), t["rmin"])
+    res = riemannian_staircase(
+        g, X0, r_min=t["rmin"], r_max=t["rmax"],
+        opt_params=ROptParameters(gradnorm_tol=1e-4, RTR_iterations=200,
+                                  RTR_tCG_iterations=t["tcg"]),
+        min_eig_num_tol=t["eta"])
+    P = g.problem_data()
+    C = dual_certificate_blocks(P, res.X)
+    dims = res.X.dims
+    S = _assemble_S_host(P, C, dims)
+    cert_host, theta, _ = _min_eig_host(P, C, dims, t["eta"])
+    rec = dict(params=t, certified=bool(res.certified),
+               final_rank=int(res.final_rank), f_final=float(res.f_final),
+               k=int(dims.k), S_nnz=int(S.nnz),
+               ldl_proof=ldl_psd_proof(
+                   S + t["eta"] * sp.identity(dims.k, format="csr")),
+               min_eig_host_certified=bool(cert_host),
+               min_eig_host_theta=float(theta))
+    rec.update(verify_solution(ms, res.X, 3, eta=t["eta"]))
+    return rec
+
+
+def solve_parity(name: str, path: str):
+    """tools/parity.run_config of the JAX package on the config `name`
+    (its file at `path`), its checkpoint and final state kept in a
+    temporary directory."""
+    import shutil
+
+    sys.path.insert(0, os.path.join(os.path.dirname(HERE), "tools"))
+    import parity
+
+    import dcora_tpu.drivers.single_robot_raslam as jdriver
+
+    config = name[len("parity_"):]
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(path, os.path.join(tmp, parity.CONFIGS[config]["file"]))
+        real = jdriver.run
+        jdriver.run = lambda *a, checkpoint_path=None, **kw: real(
+            *a, checkpoint_path=os.path.join(tmp, "ckpt.npz"), **kw)
+        state_dir, parity.STATE_DIR = parity.STATE_DIR, tmp
+        try:
+            rec = parity.run_config(config, tmp)
+        finally:
+            jdriver.run, parity.STATE_DIR = real, state_dir
+    return {k: v for k, v in rec.items()
+            if k not in ("timestamp", "elapsed_s", "verify_indep_s")}
 
 
 def solve_ra(path: str):
@@ -475,6 +560,10 @@ def main(names=None):
             t0 = time.time()
             if name in PAR_RUNS:
                 rec, dest = solve_parallel(name, path), OUT_PARALLEL
+            elif name == "tool_g2o512":
+                rec, dest = solve_g2o100k_tool(path), OUT_TOOLS
+            elif name.startswith("parity_"):
+                rec, dest = solve_parity(name, path), OUT_TOOLS
             elif name in ROBUST:
                 rec, dest = SOLVERS[name](path), OUT_ROBUST
             else:

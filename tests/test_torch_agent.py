@@ -126,6 +126,31 @@ def _agents(partition, robot=1, acceleration=False, robust=False,
     return out
 
 
+@pytest.mark.parametrize("robot", [0, 2])
+def test_agent_preconditioner_is_the_jax_agents(partition, robot):
+    """An agent's block-Jacobi preconditioner comes from the same host
+    build as the JAX agent's (solvers.make_preconditioner: the native
+    assembly when its library is built), bit for bit on AVX-512 hosts and
+    to a few ulps elsewhere (test_torch_native.py)."""
+    from dcora_tpu_torch import native as tnative
+    from dcora_tpu_torch import solvers as tsolvers
+
+    aj, at = _agents(partition, robot=robot)
+    assert aj.update_X(True, acceleration=False)
+    assert at.update_X(True, acceleration=False)
+    assert tsolvers.precond_build() == "native"
+    # the numpy build differs from the native one by ~1e-15 of max, so
+    # only the bitwise check tells the builds apart
+    bitwise = "-march=x86-64-v4" in tnative.cxx_flags()
+    for a, b in zip(at._cached_M, aj._cached_M):
+        b = np_of(b)
+        if bitwise:
+            np.testing.assert_array_equal(np_of(a), b)
+        else:
+            np.testing.assert_allclose(
+                np_of(a), b, rtol=0, atol=1e-14 * np.abs(b).max(initial=1.0))
+
+
 @pytest.mark.parametrize("robot", [0, 1, 2])
 def test_update_x_single_accepted_step_matches(partition, robot):
     aj, at = _agents(partition, robot=robot)

@@ -72,9 +72,11 @@ def _write_2d(path):
 @pytest.mark.parametrize("name", ["tinyGrid3D", "smallGrid3D", "plane2d"])
 @pytest.mark.parametrize("native", [False, True])
 def test_g2o_parser_identical_arrays(tmp_path, monkeypatch, name, native):
-    """The port parses with numpy only.  Against the JAX package's numpy
-    path the arrays are identical; against its native (ctypes) parser they
-    agree to the last few ulps."""
+    """The port's numpy path (its native library switched off) against the
+    JAX package's numpy path: identical arrays; the port's default reader
+    (its own build of the native library) against the JAX package's native
+    (ctypes) parser: to the last few ulps (test_torch_native.py holds them
+    identical)."""
     path = str(tmp_path / "f.g2o")
     if name == "plane2d":
         _write_2d(path)
@@ -83,6 +85,7 @@ def test_g2o_parser_identical_arrays(tmp_path, monkeypatch, name, native):
         getattr(jds, fn)(path, **kw)
     if not native:
         monkeypatch.setattr(jnative, "available", lambda: False)
+        monkeypatch.setenv("DCORA_NATIVE", "0")
     elif not jnative.available():
         pytest.skip("native parser library not available")
     ref = _g2o_arrays(jio.read_g2o_file(path))

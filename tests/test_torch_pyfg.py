@@ -4,11 +4,12 @@ parser, the local<->global remapping, the SE(d) helpers, ``lift``,
 
 Inputs are generated PyFG files (``generate_ra_slam_pyfg``, numpy seeds)
 plus one hand-written planar file with priors, read by both packages.  The
-port's parser is the JAX package's numpy path, so the parsed arrays are
-identical to that path's; against the JAX package's native parser, when it
-is built, they agree to 1e-12 relative (the C++ number parsing may differ
-in the last ulp).  The remapped states and the initialization agree to
-1e-12.
+port's numpy parser is the JAX package's numpy path, so with the native
+libraries switched off the parsed arrays are identical to that path's; the
+port's default reader (its native build) against the JAX package's native
+parser, when it is built, agrees to 1e-12 relative (the C++ number parsing
+may differ from numpy's in the last ulp).  The remapped states and the
+initialization agree to 1e-12.
 """
 
 import dataclasses
@@ -125,6 +126,7 @@ def _assert_same(a, b, rtol=0.0):
 @pytest.mark.parametrize("name", [*SETS, "planar"])
 def test_parser_identical_to_numpy_path(paths, monkeypatch, name):
     ref = _jax_numpy_parse(paths[name], monkeypatch)
+    monkeypatch.setenv("DCORA_NATIVE", "0")  # the port's numpy parser
     out = read_pyfg_file(paths[name])
     _assert_same(_plain(out), _plain(ref))
     assert out.dim == (2 if name == "planar" else 3)

@@ -11,7 +11,9 @@ function of a residual at an iterate that both engines reach only to the
 solver's gradient tolerance, 1e-9 here), and its trajectory, with pose 0
 moved to the identity, agrees to 1e-8 of the largest coordinate (PGO
 without a prior is defined up to one rigid motion, along which the two
-solves drift apart by ~1e-3 at the same cost).
+solves drift apart by ~1e-3 at the same cost) with the port's numpy
+Jacobi build, and to 1e-7 with its native one, below the largest spread
+between the JAX package's own two builds.
 """
 
 import os
@@ -183,9 +185,13 @@ def _corrupted(data_dir, meas, datasets):
     return out, keys
 
 
-def test_solve_robust_pgo_matches_jax(data_dir):
+def _robust_gnc_gaps(data_dir, monkeypatch, port_native):
     """GNC on smallGrid3D (125 poses) with 15 % planted gross outliers, at
-    a few stages: every final weight and the trajectory agree."""
+    a few stages, in both engines (the JAX package on its default host
+    path; the port on its native or its numpy one).  Checks the rejected
+    and accepted sets and the stage log; returns the largest weight gap
+    and the trajectory gap relative to the largest coordinate."""
+    import dcora_tpu_torch.native as tnative
     import dcora_tpu.datasets as jds
     import dcora_tpu_torch.measurements as tmeas
     from dcora_tpu_torch.core.lifted import pose_inverse, pose_multiply
@@ -203,12 +209,15 @@ def test_solve_robust_pgo_matches_jax(data_dir):
         robust_params=_params(ttypes, "GNC_TLS", **kw))
     stats = []
     Tj = jsolvers.solve_robust_pgo(ms_j, pj)
+    if port_native:
+        assert tsolvers.precond_build() == "native"
+    else:
+        monkeypatch.setattr(tnative, "get_library", lambda: None)
     Tt = tsolvers.solve_robust_pgo(ms_t, pt, device="cpu", stats=stats)
     wj = np.array([m.weight for m in ms_j])
     wt = np.array([m.weight for m in ms_t])
     np.testing.assert_array_equal(wt < 1e-8, wj < 1e-8)
     np.testing.assert_array_equal(wt > 1 - 1e-8, wj > 1 - 1e-8)
-    np.testing.assert_allclose(wt, wj, rtol=0, atol=1e-5)
     assert len(stats) >= 3 and all("init_s" in s for s in stats)
     rejected = {(m.p1, m.p2) for m in ms_t if m.weight < 1e-8}
     assert rejected and rejected <= keys
@@ -218,7 +227,32 @@ def test_solve_robust_pgo_matches_jax(data_dir):
         return np.stack([pose_multiply(inv, Ti) for Ti in T])
 
     scale = float(np.abs(Tj).max())
-    assert float(np.abs(gauge(Tt) - gauge(Tj)).max()) <= 1e-8 * scale
+    return (float(np.abs(wt - wj).max()),
+            float(np.abs(gauge(Tt) - gauge(Tj)).max()) / scale)
+
+
+def test_solve_robust_pgo_matches_jax(data_dir, monkeypatch):
+    """Every final weight and the trajectory agree, the port building its
+    block-Jacobi preconditioner in numpy, as when these gates were set."""
+    w_gap, traj_gap = _robust_gnc_gaps(data_dir, monkeypatch, False)
+    assert w_gap <= 1e-5
+    assert traj_gap <= 1e-8
+
+
+def test_solve_robust_pgo_native_matches_jax(data_dir, monkeypatch):
+    """The same on the port's default host path, the native Jacobi build
+    (bit for bit the JAX package's on the same problem data,
+    test_torch_native.py).  The gates come from the spread of the JAX
+    package against itself (tests/gnc_host_path_spread.py, PERF.md §6):
+    its native and numpy builds differ only in the
+    preconditioner's last ulps, yet over corruption seeds 7-11 their GNC
+    solves land up to 1.8e-5 apart in a weight and 1.6e-7 in the
+    trajectory (seed 9; 7.3e-7 and 3.1e-9 at seed 7).  Port native
+    against JAX native lands at most 5.3e-6 and 5.0e-8 apart over the
+    same seeds.  The gates, 1e-5 and 1e-7, lie between the two."""
+    w_gap, traj_gap = _robust_gnc_gaps(data_dir, monkeypatch, True)
+    assert w_gap <= 1e-5
+    assert traj_gap <= 1e-7
 
 
 def test_solve_robust_pgo_params_default():
