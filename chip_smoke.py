@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the three SpMM kernel libraries from ``dcora_tpu_torch/csrc/`` (one
-nvcc per source, all started together; ``-Xptxas -v``'s registers and
-spills are printed) and holds every kernel against its plain PyTorch
-version on the card at the 10,648-pose grid's shapes, timed in turns with
-the library yardstick ``torch.sparse.mm`` on the same Q and beside the
-product's bound.  Then it drives the port's paths, each with the kernels'
-launch counts set to 0 just before it and read just after:
+Builds the four kernel libraries from ``dcora_tpu_torch/csrc/`` (the three
+SpMM kernels and the edge path's deterministic segment sum; one nvcc per
+source, all started together; ``-Xptxas -v``'s registers and spills are
+printed) and holds every SpMM kernel against its plain PyTorch version on
+the card at the 10,648-pose grid's shapes, timed in turns with the library
+yardstick ``torch.sparse.mm`` on the same Q and beside the product's bound.
+Then it drives the port's paths, each with the kernels' launch counts set
+to 0 just before it and read just after (a launch recorded in a CUDA graph
+counts once per replay):
 
   * the certified single-robot PGO staircase of
     ``dcora_tpu_torch.drivers.single_robot_pgo.run(..., certify=True,
@@ -83,7 +85,13 @@ Before the RA solves the kernel phase also holds the strip kernel against
 its plain version on the ra10k Q, beside ``torch.sparse.mm`` and the bound;
 the BTD phase holds the preconditioner's CUDA graph against its plain loop
 there, and the tCG phase the edge path's tCG graph against its iterations
-issued one by one, and times one application or iteration of each.
+issued one by one, and times one application or iteration of each.  The
+repeat phase holds the segment-sum kernel (``csrc/segment_sum.cu``) against
+its plain version (``index_add_`` on the card) on ra10k's edge
+contributions at rank 3, timed beside ``index_add_`` and its bound, and
+checks that two runs are bitwise equal: ``apply_Q`` at ra10k rank 3, the
+200-iteration graph tCG solve, grid10k's chordal init and DC2-PGO's
+``central_eval``.
 
 Sequential and fail-closed: every phase prints a line and any failure
 raises, so the exit code is non-zero and the result line is not printed.
@@ -124,6 +132,13 @@ KERNELS = {
     "spmm_paired": dict(name="spmm_paired", route="cuda",
                         source="dcora_tpu_torch/csrc/spmm_grouped.cu",
                         replaces="dcora_tpu/core/pallas_spmm.py:515"),
+    # the port's own kernel: it replaces XLA's segment_sum of the edge path,
+    # not a Pallas kernel
+    "segment_sum": dict(name="segment_sum", route="cuda",
+                        source="dcora_tpu_torch/csrc/segment_sum.cu",
+                        replaces="dcora_tpu/core/problem.py:318",
+                        note="port's own kernel; replaces XLA's segment_sum, "
+                        "not a Pallas kernel"),
 }
 LIBRARY = "library"  # torch.sparse.mm on the full symmetric Q, CSR
 # relative to max|W|: a different summation order, plus f32 rounding
@@ -136,8 +151,12 @@ RA_ETA = 1e-4  # the RA driver's certificate tolerance and the witness's
 # the BTD graph against its plain loop, relative to max|Y|
 BTD_TOL = {"float32": 1e-4, "float64": 1e-10}
 # the tCG graph against its iterations issued one by one, relative to
-# max|eta| (index_add_ sums in another order from call to call)
+# max|eta| (the two issue the same kernels; the tolerance dates from the
+# edge path's index_add_, which summed in another order from call to call)
 TCG_TOL = 1e-9
+# the segment-sum kernel against its plain version (index_add_ on the card,
+# float atomics), relative to max|out|: another order, plus f32 rounding
+SEG_TOL = {"float32": 1e-5, "float64": 1e-13}
 # chordal init on the card against the CPU, relative to max|T| (two CG
 # solves to 1e-12 that sum in different orders)
 INIT_TOL = 1e-8
@@ -146,11 +165,11 @@ G2O100K_POSES = 97_336  # generate_large_scale_g2o's default: a 46^3 grid
 # gradnorm 1e-2 of the weighted problem, and each stage's weights come from
 # the stage before, so every quantity of the end state but the rejected set
 # moves with where those stages stopped, which moves with summation order.
-# Across five runs on one H100 (the edge path's index_add_ sums in another
-# order from run to run) and a CPU run of the port: the final weights
-# 1.4e-3 to 6.8e-3 apart from JAX's on the card (1.6e-2 on the CPU), the
-# weighted problem's cost 6.3e-6 to 4.8e-5 relative (2.1e-4), the clean
-# problem's cost 1.4e-6 to 2.2e-5 over eleven card runs (5.6e-5).
+# Across five runs on one H100 (when the edge path summed with index_add_,
+# in another order from run to run) and a CPU run of the port: the final
+# weights 1.4e-3 to 6.8e-3 apart from JAX's on the card (1.6e-2 on the
+# CPU), the weighted problem's cost 6.3e-6 to 4.8e-5 relative (2.1e-4),
+# the clean problem's cost 1.4e-6 to 2.2e-5 over eleven card runs (5.6e-5).
 # One GNC step of mu more or less moves the undecided weights by ~0.1 and
 # the weighted cost by ~2e-2.  The 1e-6 asked of the clean cost is not met
 GNC_W_ATOL = 3e-2
@@ -617,6 +636,147 @@ def tcg_phase(torch, path):
           f"{rel:.2e}; first 200-iteration solve with capture "
           f"{capture_s:.2f}s")
     return graph_ms / full, loop_ms / full
+
+
+def repeat_phase(torch, paths, mr):
+    """[repeat] With torch's deterministic switch off, two runs of each of
+    these are bitwise equal: apply_Q on ra10k at rank 3 (odometry init),
+    the 200-iteration tCG solve through its CUDA graph there, grid10k's
+    chordal init, and DC2-PGO's central_eval (at its certified smallGrid3D
+    optimum, 25 poses per robot, and at grid10k's chordal init at rank 5 in
+    5 robots, rows of ~2,130 poses).  Then the segment-sum kernel against
+    its plain version (index_add_ per part on the card): on grid10k's
+    per-robot rows, and on ra10k's three blocks of edge contributions at
+    rank 3, in f64 (the edge path's type) and f32, timed in turns beside
+    index_add_ (the library call) and its bound.  Returns the kernel's
+    rows."""
+    import numpy as np
+
+    from dcora_tpu_torch.core import lifted, problem as prob, rtr, segment
+    from dcora_tpu_torch.core.graph import LocalGraph
+    from dcora_tpu_torch.core.init import chordal_initialization
+    from dcora_tpu_torch.drivers.multi_robot_pgo import central_eval
+    from dcora_tpu_torch.io import read_g2o_file
+    from dcora_tpu_torch.tools import common
+
+    t0 = time.perf_counter()
+    require(not torch.are_deterministic_algorithms_enabled(),
+            "torch's deterministic algorithms are on")
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    checks = {}
+    tcg = common.edge_tcg(paths["ra10k"], 3, 200)
+    P, X = tcg.P, tcg.X
+    checks["apply_Q ra10k r=3"] = same(prob.apply_Q(P, X),
+                                       prob.apply_Q(P, X))
+    runs = [tcg.solve() for _ in range(2)]
+    require(all(int(r.inner_iters) == 200 for r in runs),
+            "a repeated tCG solve stopped before 200 iterations")
+    checks["tCG graph ra10k 200 iterations"] = \
+        same(runs[0].eta, runs[1].eta) and same(runs[0].Heta, runs[1].Heta)
+    ms = read_g2o_file(paths["grid10k"]).pose_pose_measurements
+    T = [chordal_initialization(ms, device="cuda") for _ in range(2)]
+    checks["chordal init grid10k"] = bool(np.array_equal(T[0], T[1]))
+
+    def evals(path, X, robots):
+        gc = LocalGraph(0, X.r, 3)
+        gc.set_measurements(read_g2o_file(path).pose_pose_measurements)
+        n = gc.n
+        blocks = segment.build_map([[min(i // max(n // robots, 1),
+                                         robots - 1) for i in range(n)]],
+                                   "cuda")
+        Pc = gc.problem_data(device="cuda")
+        G0 = lifted.zeros(gc.dims, X.r, device="cuda")
+        return ([central_eval(Pc, G0, X, blocks, robots) for _ in range(2)],
+                (Pc, G0, X, blocks))
+
+    path, res = mr
+    e_small, _ = evals(path, res.X, 5)
+    e_grid, grid = evals(paths["grid10k"], lifted.pad_rank(
+        lifted.from_pose_array(T[0]), 5).to("cuda"), 5)
+    for name, e in (("DC2-PGO central_eval smallGrid3D", e_small),
+                    ("central_eval grid10k 5 robots", e_grid)):
+        checks[name] = repr(e[0]) == repr(e[1])
+    torch.cuda.synchronize()
+    phase("[repeat] two runs bitwise equal: " + ", ".join(
+        f"{k} {v}" for k, v in checks.items())
+        + f" ({time.perf_counter() - t0:.2f}s)")
+    for k, v in checks.items():
+        require(v, f"{k}: two runs differ")
+
+    # the long rows: grid10k's per-robot sum of squared gradient norms
+    # (5 rows of ~2,130 poses each), kernel against its plain version
+    Pc, G0, Xg, pose_blocks = grid
+    RG = rtr.riemannian_gradient(Pc, Xg, G0)
+    sq = (RG.rot ** 2).sum(dim=(1, 2)) + (RG.trn ** 2).sum(dim=1)
+    out, plain = (segment.segment_sum(sq, pose_blocks, 5),
+                  segment.segment_sum_plain(sq, pose_blocks, 5))
+    torch.cuda.synchronize()
+    err, scale = float((out - plain).abs().max()), float(plain.abs().max())
+    longest = int((pose_blocks.ptr[1:] - pose_blocks.ptr[:-1]).max())
+    phase(f"[repeat] segment_sum grid10k per-robot rows (longest {longest} "
+          f"entries) against index_add_: max_abs_err={err:.3e} (rel "
+          f"{err / scale:.2e})")
+    require(bool(torch.isfinite(out).all()) and err <= SEG_TOL["float64"]
+            * scale, f"segment_sum grid10k per-robot rows disagree with "
+            f"index_add_: {err:.3e} > {SEG_TOL['float64']:.0e} * "
+            f"{scale:.3e}")
+
+    rows, gbs = [], hbm_gbs(torch)
+    blocks = prob.edge_contributions(P, X)
+    nums = (X.rot.shape[0], X.trn.shape[0], X.sph.shape[0])
+    for dt in (torch.float64, torch.float32):
+        dts = str(dt).split(".")[-1]
+        for part, c, m, num in zip(("rot", "trn", "sph"), blocks, P.seg,
+                                   nums):
+            c = c.to(dt).contiguous()
+            Z = torch.zeros((max(num, m.nseg),) + c.shape[1:], dtype=dt,
+                            device="cuda")
+            # the index array on the card, so that neither the plain
+            # version nor index_add_ times a copy from the host
+            md = m._replace(idx=m.idx.to("cuda"))
+            fns = [lambda c=c, m=m, num=num: segment.segment_sum(c, m, num),
+                   lambda c=c, m=md, num=num: segment.segment_sum_plain(
+                       c, m, num),
+                   lambda c=c, m=md, Z=Z: Z.index_add(0, m.idx, c)]
+            out, plain, lib = (f() for f in fns)
+            torch.cuda.synchronize()
+            scale = float(plain.abs().max())
+            err = max(float((out - plain).abs().max()),
+                      float((out - lib[:num]).abs().max()))
+            require(bool(torch.isfinite(out).all()),
+                    f"segment_sum {part} {dts}: output not finite")
+            require(err <= SEG_TOL[dts] * scale, f"segment_sum {part} {dts} "
+                    f"disagrees with index_add_: {err:.3e} > "
+                    f"{SEG_TOL[dts]:.0e} * {scale:.3e}")
+            require(torch.equal(out, fns[0]()), f"segment_sum {part} {dts}: "
+                    "two launches differ")
+            ms = common.time_turns_ms(fns)
+            dev_ms = [common.device_ms(f) for f in fns]
+            K, w = c.shape[0], c[0].numel()
+            esize = c.element_size()
+            nbytes = (K + num) * w * esize + 4 * (K + m.nseg + 1)
+            bound = max((nbytes / (gbs * 1e6), "bytes"),
+                        (K * w / common.PEAK_FLOPS[dt] * 1e3, "operations"))
+            rows.append(dict(kernel="segment_sum", problem=f"ra10k {part}",
+                             dtype=dts, max_abs_err=err, ms=ms[0],
+                             plain_ms=ms[1], library_ms=ms[2],
+                             bound_ms=bound[0], bound_by=bound[1],
+                             device_ms=dev_ms))
+            phase(f"[kernel] segment_sum ra10k r=3 {part} {dts}: K={K} "
+                  f"w={w} rows={num} longest row "
+                  f"{int((m.ptr[1:] - m.ptr[:-1]).max())} "
+                  f"max_abs_err={err:.3e} (rel {err / scale:.2e}) "
+                  f"kernel_ms={ms[0]:.4f} plain_ms={ms[1]:.4f} "
+                  f"index_add_ms={ms[2]:.4f} bound_ms={bound[0]:.5f} "
+                  f"({bound[1]}, {nbytes / 1e6:.3f} MB) (per launch, "
+                  f"{common.LAUNCHES} back to back, median of 3 turns; "
+                  f"events, so the host's issue time bounds them); device "
+                  f"ms (profiler) kernel {dev_ms[0]:.5f} plain "
+                  f"{dev_ms[1]:.5f} index_add {dev_ms[2]:.5f}")
+    return rows
 
 
 def raslam_phase(torch, name, path, ref, r_max):
@@ -1610,8 +1770,9 @@ def par_ra_phase(torch, paths, ref):
 def par_dist_phase(torch, pp, X):
     """[parallel dist] the 8-agent grid10k round (the driver's default,
     f32 tiles) inside a one-rank NCCL group on a TCP store on localhost,
-    bitwise equal to the round with no group, with torch's deterministic
-    algorithms on (index_add_ then sums in one order from call to call)."""
+    bitwise equal to the round with no group, and two rounds with no group
+    bitwise equal, with torch's deterministic switch off (the edge path's
+    segment sums are the deterministic kernel)."""
     import socket
 
     import torch.distributed as dist
@@ -1620,34 +1781,33 @@ def par_dist_phase(torch, pp, X):
     from dcora_tpu_torch.parallel.rbcd import ParallelRound, init_group
 
     kw = dict(backend="tiled", tile_dtype=torch.float32, device="cuda")
-    prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    require(not torch.are_deterministic_algorithms_enabled(),
+            "torch's deterministic algorithms are on")
+    local = ParallelRound(pp, ROUND_CFG, **kw)(X)
+    again = ParallelRound(pp, ROUND_CFG, **kw)(X)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    group = init_group("cuda", f"tcp://localhost:{port}", 1, 0)
     try:
-        local = ParallelRound(pp, ROUND_CFG, **kw)(X)
-        again = ParallelRound(pp, ROUND_CFG, **kw)(X)
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        group = init_group("cuda", f"tcp://localhost:{port}", 1, 0)
-        try:
-            backend = dist.get_backend(group)
-            t0 = time.perf_counter()
-            in_group = ParallelRound(pp, ROUND_CFG, group=group, **kw)(X)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            dist.destroy_process_group()
+        backend = dist.get_backend(group)
+        t0 = time.perf_counter()
+        in_group = ParallelRound(pp, ROUND_CFG, group=group, **kw)(X)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     finally:
-        torch.use_deterministic_algorithms(prev)
+        dist.destroy_process_group()
     same = all(torch.equal(a, b) for a, b in zip(in_group[0], local[0])) \
         and torch.equal(in_group[1], local[1])
-    repeat = all(torch.equal(a, b) for a, b in zip(again[0], local[0]))
+    repeat = all(torch.equal(a, b) for a, b in zip(again[0], local[0])) \
+        and torch.equal(again[1], local[1])
     phase(f"[parallel dist] grid10k, {pp.num_agents} agents, f32 tiles: "
           f"the round in a one-rank {backend} group bitwise equal to the "
           f"local round: {same} (two local rounds bitwise equal: {repeat}); "
           f"build and round {wall:.2f}s")
     require(backend == "nccl", f"the group's backend is {backend}")
     require(same, "the one-rank NCCL round differs from the local round")
+    require(repeat, "two local rounds differ")
 
 
 def par_certify_phase(torch, path10k, X10k, mr):
@@ -1763,7 +1923,7 @@ def main() -> int:
             ra_refs = json.load(fh)
     rows, counts, paired, benched, ra = [], {}, {}, {}, {}
     gnc_counts, agent_counts, par_counts, par_ra_counts = {}, {}, {}, {}
-    g2o_counts = {}
+    g2o_counts, mr_counts = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         paths = {}
         for name in ("smallGrid3D", "grid10k"):
@@ -1814,6 +1974,8 @@ def main() -> int:
                 and counts["spmm_symmetric"] == 0,
                 f"the default solve launched another SpMM kernel: "
                 f"{counts}")
+        require(counts["segment_sum"] > 0, f"the PGO solves' edge path "
+                f"never launched the segment-sum kernel: {counts}")
         phase(f"[launches] default pack: {counts}, {products[0]} tile "
               f"products (10,648-pose grid wall {walls['grid10k']:.2f}s)")
         parity_phase(torch, tmp)
@@ -1823,7 +1985,12 @@ def main() -> int:
         phase(f"[launches] gnc2500: {gnc_counts}")
         rows += gnc_kernel_phase(torch, gnc_ms)
         agent_counts = agent_gnc_phase(torch, tmp, robust_refs)
+        spmm.reset_launches()
         mr = mr_phase(torch, tmp, robust_refs)
+        mr_counts = spmm.launch_counts()
+        phase(f"[launches] DC2-PGO: {mr_counts}")
+        require(mr_counts["segment_sum"] > 0, "DC2-PGO never launched the "
+                "segment-sum kernel")
         dist_gnc_phase(torch, tmp, robust_refs)
         for name in ("ra500", "ra500_nl"):
             mr_ra_phase(torch, name, paths[name], robust_refs)
@@ -1851,6 +2018,7 @@ def main() -> int:
         btd_phase(torch, tps)
         del tps
         tcg_phase(torch, paths["ra10k"])
+        rows += repeat_phase(torch, paths, mr)
         os.environ.pop("DCORA_SPMM_PACK", None)
         for name, (_, r_max) in RA_SETS.items():
             ra[name] = raslam_phase(torch, name, paths[name],
@@ -1864,13 +2032,18 @@ def main() -> int:
     # r_pad 8 for spmm_bench; kernel 1's launches are those of the PGO, the
     # GNC (centralized and the agent's init), the RA solves, the parallel
     # rounds (PGO and RA) and the g2o100k solve together
+    # the segment sum's are those of every path read, DC2-PGO's too
+    path_counts = [counts, paired, benched, gnc_counts, agent_counts,
+                   mr_counts, par_counts, par_ra_counts, g2o_counts,
+                   *(c for c, _ in ra.values())]
     launches = dict(spmm_sym=counts["spmm_sym"] + sum(
                         c["spmm_sym"] for c, _ in ra.values())
                     + gnc_counts["spmm_sym"] + agent_counts["spmm_sym"]
                     + par_counts["spmm_sym"] + par_ra_counts["spmm_sym"]
                     + g2o_counts["spmm_sym"],
                     spmm_tile=benched["spmm_symmetric"],
-                    spmm_paired=paired["spmm_paired"])
+                    spmm_paired=paired["spmm_paired"],
+                    segment_sum=sum(c["segment_sum"] for c in path_counts))
     phase("[launches] spmm_sym per path: " + ", ".join(
         [f"pgo {counts['spmm_sym']}", f"gnc2500 {gnc_counts['spmm_sym']}",
          f"gnc agent init {agent_counts['spmm_sym']}"]
@@ -1878,14 +2051,24 @@ def main() -> int:
         + [f"parallel grid10k {par_counts['spmm_sym']}",
            f"parallel ra {par_ra_counts['spmm_sym']}",
            f"g2o100k {g2o_counts['spmm_sym']}"]))
+    phase("[launches] segment_sum per path: " + ", ".join(
+        f"{k} {c['segment_sum']}" for k, c in zip(
+            ("pgo", "paired pgo", "bench", "gnc2500", "gnc agent init",
+             "DC2-PGO", "parallel grid10k", "parallel ra", "g2o100k",
+             *ra), path_counts)))
     main_dtype = dict(spmm_sym="float64", spmm_tile="float32",
                       spmm_paired="float64")
     entries = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        main_row = next(r for r in mine if r["dtype"] == main_dtype[name]
-                        and r["r_pad"] == 8 and r["live"] == 8
-                        and r["problem"] == "grid10k")
+        if name == "segment_sum":  # the rotations' sum at ra10k rank 3
+            main_row = next(r for r in mine if r["dtype"] == "float64"
+                            and r["problem"] == "ra10k rot")
+        else:
+            main_row = next(r for r in mine
+                            if r["dtype"] == main_dtype[name]
+                            and r["r_pad"] == 8 and r["live"] == 8
+                            and r["problem"] == "grid10k")
         entries.append(dict(meta, launches=launches[name],
                             max_abs_err=max(r["max_abs_err"] for r in mine),
                             **{k: main_row[k] for k in (

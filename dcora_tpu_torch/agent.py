@@ -1049,11 +1049,11 @@ def pad_problem_for_local(P: prob.ProblemData,
     def remap(idx, limit):
         return torch.clamp(idx, max=limit)
 
-    return P._replace(
+    return prob.with_segments(P._replace(
         pp_ri=remap(P.pp_ri, n), pp_rj=remap(P.pp_rj, n),
         pp_ti=remap(P.pp_ti, nt), pp_tj=remap(P.pp_tj, nt),
         pl_ri=remap(P.pl_ri, n),
         pl_ti=remap(P.pl_ti, nt), pl_tj=remap(P.pl_tj, nt),
         rg_ti=remap(P.rg_ti, nt), rg_tj=remap(P.rg_tj, nt),
         rg_q=remap(P.rg_q, l),
-    )
+    ))

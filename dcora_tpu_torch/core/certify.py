@@ -367,12 +367,18 @@ def _min_eig_host(P: ProblemData, C: Certificate, dims: ProblemDims,
          LOBPCG fallback;
       3. fail closed: never certify from an unconverged vector.
     A negative Rayleigh quotient below -eta is a sound indefiniteness proof.
+
+    Every ARPACK call starts from a vector of a seeded generator: without
+    one ARPACK draws its start from a stream it keeps across calls in the
+    process, so the same S gives another estimate (in its last digits) on
+    every call.  The JAX package leaves two of the calls unseeded.
     """
     import scipy.sparse as sp
     from scipy.sparse.linalg import ArpackNoConvergence, eigsh, lobpcg
 
     k = dims.k
     S = _assemble_S_host(P, C, dims)
+    rng = np.random.default_rng(0)
 
     if eta > 0:
         logging.getLogger(__name__).info(
@@ -389,7 +395,7 @@ def _min_eig_host(P: ProblemData, C: Certificate, dims: ProblemDims,
                 sigma = -0.5 * (lo + hi)
                 try:
                     _, Vv = eigsh(S, k=1, sigma=sigma, which="LM",
-                                  maxiter=1000)
+                                  maxiter=1000, v0=rng.standard_normal(k))
                     v = Vv[:, 0]
                     v = v / np.linalg.norm(v)
                     theta = float(v @ (S @ v))
@@ -401,7 +407,8 @@ def _min_eig_host(P: ProblemData, C: Certificate, dims: ProblemDims,
             return False, -eta, None
 
     lam_max = float(eigsh(S, k=1, which="LA", return_eigenvectors=False,
-                          tol=1e-4, ncv=min(k, 50))[0])
+                          tol=1e-4, ncv=min(k, 50),
+                          v0=rng.standard_normal(k))[0])
     shift = 1.01 * max(lam_max, 1e-6)
     B = (shift * sp.identity(k, format="csr") - S).tocsr()
     rng = np.random.default_rng(0)

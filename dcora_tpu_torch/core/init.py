@@ -22,6 +22,7 @@ import torch
 
 from dcora_tpu_torch.core.device import resolve_device
 from dcora_tpu_torch.core.manifold import rotation_project
+from dcora_tpu_torch.core.segment import SegmentMap, build_map, segment_sum
 from dcora_tpu_torch.measurements import RelativePosePoseMeasurement
 
 
@@ -53,12 +54,6 @@ def odometry_initialization(odometry: List[RelativePosePoseMeasurement],
         T[dst, :, :d] = R_src @ m.R
         T[dst, :, d] = T[dst - 1, :, d] + R_src @ m.t
     return T
-
-
-def _seg(contrib, idx, n):
-    out = torch.zeros((n,) + contrib.shape[1:], dtype=contrib.dtype,
-                      device=contrib.device)
-    return out.index_add_(0, idx, contrib)
 
 
 # CG reads its stopping rule on the host every this many iterations (each
@@ -102,9 +97,10 @@ def cg(A: Callable, b: torch.Tensor, M: Callable, tol: float,
     return x
 
 
-def _chordal_rotations(ii, jj, Rm, kappa, n: int,
+def _chordal_rotations(ii, jj, Rm, kappa, n: int, seg: SegmentMap,
                        iters: Optional[list] = None) -> torch.Tensor:
-    """Pinned rotation Laplacian system (row 0 fixed to I), Jacobi-PCG."""
+    """Pinned rotation Laplacian system (row 0 fixed to I), Jacobi-PCG.
+    seg maps the sums over [ii, jj] onto the n poses."""
     d = Rm.shape[1]
 
     def lap(X):
@@ -114,7 +110,7 @@ def _chordal_rotations(ii, jj, Rm, kappa, n: int,
                                                         Xj, Rm))
         c_j = kappa[:, None, None] * (Xj - torch.einsum("mre,med->mrd",
                                                         Xi, Rm))
-        return _seg(torch.cat([c_i, c_j]), torch.cat([ii, jj]), n)
+        return segment_sum(torch.cat([c_i, c_j]), seg, n)
 
     mask = (torch.arange(n, device=Rm.device) > 0)[:, None, None]
 
@@ -124,20 +120,20 @@ def _chordal_rotations(ii, jj, Rm, kappa, n: int,
     X0 = torch.zeros((n, d, d), dtype=Rm.dtype, device=Rm.device)
     X0[0] = torch.eye(d, dtype=Rm.dtype, device=Rm.device)
     b = torch.where(mask, -lap(X0), 0.0)
-    deg = _seg(torch.cat([kappa, kappa]), torch.cat([ii, jj]), n)
+    deg = segment_sum(torch.cat([kappa, kappa]), seg, n)
     deg = torch.where(deg == 0, 1.0, deg)[:, None, None]
     x = cg(A, b, lambda v: v / deg, tol=1e-12, maxiter=20 * n, iters=iters)
     return X0 + x
 
 
-def _recover_translations(ii, jj, tm, tau, R, n: int,
+def _recover_translations(ii, jj, tm, tau, R, n: int, seg: SegmentMap,
                           iters: Optional[list] = None) -> torch.Tensor:
     """Pinned translation Laplacian (reference: recoverTranslations,
-    DCORA_utils.cpp:1633-1659)."""
+    DCORA_utils.cpp:1633-1659); seg as in _chordal_rotations."""
 
     def lap(t):
         diff = tau[:, None] * (t[ii] - t[jj])
-        return _seg(torch.cat([diff, -diff]), torch.cat([ii, jj]), n)
+        return segment_sum(torch.cat([diff, -diff]), seg, n)
 
     mask = (torch.arange(n, device=tm.device) > 0)[:, None]
 
@@ -145,10 +141,10 @@ def _recover_translations(ii, jj, tm, tau, R, n: int,
         return torch.where(mask, lap(torch.where(mask, x, 0.0)), 0.0)
 
     Rt = torch.einsum("mde,me->md", R[ii], tm)  # R_i t_e
-    rhs = _seg(torch.cat([-tau[:, None] * Rt, tau[:, None] * Rt]),
-               torch.cat([ii, jj]), n)
+    rhs = segment_sum(torch.cat([-tau[:, None] * Rt, tau[:, None] * Rt]),
+                      seg, n)
     b = torch.where(mask, rhs, 0.0)
-    deg = _seg(torch.cat([tau, tau]), torch.cat([ii, jj]), n)
+    deg = segment_sum(torch.cat([tau, tau]), seg, n)
     deg = torch.where(deg == 0, 1.0, deg)[:, None]
     return cg(A, b, lambda v: v / deg, tol=1e-12, maxiter=20 * n,
               iters=iters)
@@ -175,9 +171,12 @@ def chordal_initialization(measurements: List[RelativePosePoseMeasurement],
     kappa = torch.as_tensor([m.kappa * m.weight for m in measurements], **f64)
     tau = torch.as_tensor([m.tau * m.weight for m in measurements], **f64)
 
-    X = _chordal_rotations(ii, jj, Rm, kappa, n, cg_iters)
+    # one map of the sums over [ii, jj], built on the host for the call
+    seg = build_map([[m.p1 for m in measurements]
+                     + [m.p2 for m in measurements]], device)
+    X = _chordal_rotations(ii, jj, Rm, kappa, n, seg, cg_iters)
     R = rotation_project(X)
-    t = _recover_translations(ii, jj, tm, tau, R, n, cg_iters)
+    t = _recover_translations(ii, jj, tm, tau, R, n, seg, cg_iters)
 
     T = np.zeros((n, d, d + 1))
     T[:, :, :d] = R.cpu().numpy()

@@ -3,7 +3,9 @@
 Counterpart of ``dcora_tpu.core.problem``.  Implements the lifted cost
 f(X) = 0.5 <Q, X^T X> + <X, G>  (reference: QuadraticProblem.h:30-40,
 QuadraticProblem.cpp:38-84) without forming a sparse matrix: Q is held as
-its measurement SoA and applied by gather -> batched einsum -> index_add_.
+its measurement SoA and applied by gather -> batched einsum -> segment sum
+(``core/segment.py``: on the card the deterministic kernel
+``csrc/segment_sum.cu``, one launch per output block).
 
 Closed-form per-edge blocks of Q (RA ordering; w = weight, kw = w*kappa,
 tw = w*tau, om = w*precision), applied to the state with the residual
@@ -29,6 +31,17 @@ import numpy as np
 import torch
 
 from dcora_tpu_torch.core.lifted import RAState
+from dcora_tpu_torch.core.segment import SegmentMap, build_map, segment_sum
+
+
+class Segments(NamedTuple):
+    """The segment maps of apply_Q's three output blocks, over the index
+    fields in the order apply_Q concatenates its contributions; one part
+    per edge kind (pose-pose | pose-landmark | range)."""
+
+    rot: SegmentMap  # pp_ri, pp_rj | pl_ri
+    trn: SegmentMap  # pp_ti, pp_tj | pl_ti, pl_tj | rg_ti, rg_tj
+    sph: SegmentMap  # rg_q
 
 
 class ProblemData(NamedTuple):
@@ -74,6 +87,10 @@ class ProblemData(NamedTuple):
     # quadratic prior diagonals over LOCAL slots (Graph.cpp:314-331)
     prior_kdiag: Optional[torch.Tensor] = None  # [n]
     prior_tdiag: Optional[torch.Tensor] = None  # [n+b]
+    # the segment maps of the index fields (with_segments): a layout detail
+    # of the port, which the JAX ProblemData does not have.  apply_Q needs
+    # them; whoever changes an index field rebuilds them
+    seg: Optional[Segments] = None
 
     @property
     def num_pose_pose(self) -> int:
@@ -108,14 +125,18 @@ def problem_data_from_arrays(arrays: dict, device="cpu") -> ProblemData:
         else:
             out[name] = torch.tensor(np.asarray(a, dtype=np.float64),
                                      device=device)
-    return ProblemData(**out)
+    return with_segments(ProblemData(**out))
 
 
-def _seg(contrib: torch.Tensor, idx: torch.Tensor, num: int) -> torch.Tensor:
-    """Segment sum of contrib rows into `num` rows."""
-    out = torch.zeros((num,) + contrib.shape[1:], dtype=contrib.dtype,
-                      device=contrib.device)
-    return out.index_add_(0, idx, contrib)
+def with_segments(P: ProblemData) -> ProblemData:
+    """P with the segment maps of its current index fields, on P's device
+    (built on the host)."""
+    dev = P.device
+    return P._replace(seg=Segments(
+        rot=build_map([(P.pp_ri, P.pp_rj), (P.pl_ri,)], dev),
+        trn=build_map([(P.pp_ti, P.pp_tj), (P.pl_ti, P.pl_tj),
+                       (P.rg_ti, P.rg_tj)], dev),
+        sph=build_map([(P.rg_q,)], dev)))
 
 
 def _pad_row(x: torch.Tensor) -> torch.Tensor:
@@ -123,22 +144,15 @@ def _pad_row(x: torch.Tensor) -> torch.Tensor:
                                      device=x.device)])
 
 
-def apply_Q(P: ProblemData, X: RAState) -> RAState:
-    """W = X Q arranged in the same block layout as X (Q is symmetric).
-
-    Replaces EucHessianEta / EucGrad SpMV (QuadraticProblem.cpp:53-68).
-    """
-    n_aug, r, d = X.rot.shape
-    t_aug = X.trn.shape[0]
-    l_aug = X.sph.shape[0]
-    dtype, dev = X.rot.dtype, X.rot.device
+def edge_contributions(P: ProblemData, X: RAState):
+    """The per-edge terms of X Q for apply_Q's three output blocks
+    (rotations [K, r, d], translations [K, r], spheres [K, r]), each in the
+    order of the index array of its map in Segments."""
+    r, d = X.rot.shape[1:]
     rot_pad = _pad_row(X.rot)
     trn_pad = _pad_row(X.trn)
     sph_pad = _pad_row(X.sph)
-
-    out_rot = torch.zeros((n_aug, r, d), dtype=dtype, device=dev)
-    out_trn = torch.zeros((t_aug, r), dtype=dtype, device=dev)
-    out_sph = torch.zeros((l_aug, r), dtype=dtype, device=dev)
+    c_rot, c_trn, c_sph = [], [], []
 
     if P.pp_ri.shape[0] > 0:
         kw = P.pp_kappa * P.pp_w * P.pp_active
@@ -148,18 +162,13 @@ def apply_Q(P: ProblemData, X: RAState) -> RAState:
         ti = trn_pad[P.pp_ti]  # [m, r]
         tj = trn_pad[P.pp_tj]
         s = torch.einsum("mrd,md->mr", Yi, P.pp_t) + ti - tj
-        c_ri = kw[:, None, None] * (
+        c_rot.append(kw[:, None, None] * (
             Yi - torch.einsum("mre,mde->mrd", Yj, P.pp_R)
-        ) + tw[:, None, None] * (s[:, :, None] * P.pp_t[:, None, :])
-        c_rj = kw[:, None, None] * (
-            Yj - torch.einsum("mre,med->mrd", Yi, P.pp_R))
-        out_rot = out_rot + _seg(torch.cat([c_ri, c_rj]),
-                                 torch.cat([P.pp_ri, P.pp_rj]),
-                                 n_aug + 1)[:n_aug]
+        ) + tw[:, None, None] * (s[:, :, None] * P.pp_t[:, None, :]))
+        c_rot.append(kw[:, None, None] * (
+            Yj - torch.einsum("mre,med->mrd", Yi, P.pp_R)))
         tws = tw[:, None] * s
-        out_trn = out_trn + _seg(torch.cat([tws, -tws]),
-                                 torch.cat([P.pp_ti, P.pp_tj]),
-                                 t_aug + 1)[:t_aug]
+        c_trn += [tws, -tws]
 
     if P.pl_ri.shape[0] > 0:
         tw = P.pl_tau * P.pl_w * P.pl_active
@@ -167,13 +176,10 @@ def apply_Q(P: ProblemData, X: RAState) -> RAState:
         ti = trn_pad[P.pl_ti]
         tj = trn_pad[P.pl_tj]
         s = torch.einsum("mrd,md->mr", Yi, P.pl_t) + ti - tj
-        out_rot = out_rot + _seg(
-            tw[:, None, None] * (s[:, :, None] * P.pl_t[:, None, :]),
-            P.pl_ri, n_aug + 1)[:n_aug]
+        c_rot.append(tw[:, None, None] * (s[:, :, None]
+                                          * P.pl_t[:, None, :]))
         tws = tw[:, None] * s
-        out_trn = out_trn + _seg(torch.cat([tws, -tws]),
-                                 torch.cat([P.pl_ti, P.pl_tj]),
-                                 t_aug + 1)[:t_aug]
+        c_trn += [tws, -tws]
 
     if P.rg_ti.shape[0] > 0:
         om = P.rg_prec * P.rg_w * P.rg_active
@@ -181,22 +187,39 @@ def apply_Q(P: ProblemData, X: RAState) -> RAState:
         tb = trn_pad[P.rg_tj]
         sq = sph_pad[P.rg_q]
         g = P.rg_rho[:, None] * sq + tb - ta
-        out_sph = out_sph + _seg((om * P.rg_rho)[:, None] * g, P.rg_q,
-                                 l_aug + 1)[:l_aug]
+        c_sph.append((om * P.rg_rho)[:, None] * g)
         omg = om[:, None] * g
-        out_trn = out_trn + _seg(torch.cat([-omg, omg]),
-                                 torch.cat([P.rg_ti, P.rg_tj]),
-                                 t_aug + 1)[:t_aug]
+        c_trn += [-omg, omg]
+
+    def cat(parts, shape):
+        return torch.cat(parts) if parts else X.rot.new_zeros((0,) + shape)
+
+    return cat(c_rot, (r, d)), cat(c_trn, (r,)), cat(c_sph, (r,))
+
+
+def apply_Q(P: ProblemData, X: RAState) -> RAState:
+    """W = X Q arranged in the same block layout as X (Q is symmetric).
+
+    Replaces EucHessianEta / EucGrad SpMV (QuadraticProblem.cpp:53-68).
+    Each output block is one segment sum over P.seg, which P must carry
+    (raises otherwise).
+    """
+    seg = P.seg
+    if seg is None:
+        raise ValueError("apply_Q: the ProblemData has no segment maps "
+                         "(problem.with_segments)")
+    c_rot, c_trn, c_sph = edge_contributions(P, X)
+    out_rot = segment_sum(c_rot, seg.rot, X.rot.shape[0])
+    out_trn = segment_sum(c_trn, seg.trn, X.trn.shape[0])
+    out_sph = segment_sum(c_sph, seg.sph, X.sph.shape[0])
 
     if P.prior_kdiag is not None:
         n_loc = P.prior_kdiag.shape[0]
-        kd = P.prior_kdiag.to(dtype)
-        out_rot = out_rot.clone()
+        kd = P.prior_kdiag.to(X.rot.dtype)
         out_rot[:n_loc] += kd[:, None, None] * X.rot[:n_loc]
     if P.prior_tdiag is not None:
         t_loc = P.prior_tdiag.shape[0]
-        td = P.prior_tdiag.to(dtype)
-        out_trn = out_trn.clone()
+        td = P.prior_tdiag.to(X.rot.dtype)
         out_trn[:t_loc] += td[:, None] * X.trn[:t_loc]
 
     return RAState(rot=out_rot, sph=out_sph, trn=out_trn)

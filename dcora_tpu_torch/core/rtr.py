@@ -46,6 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from dcora_tpu_torch.core import kernels
 from dcora_tpu_torch.core import problem as prob
 from dcora_tpu_torch.core import tiled
 from dcora_tpu_torch.core.lifted import RAState
@@ -347,13 +348,15 @@ class TCGGraph:
     host decision and can be recorded once.  The graph reads its inputs
     (X, the Weingarten terms, radius, the stopping tolerance) from static
     buffers and writes the tCG state back into its own static buffers;
-    `load` copies an outer iteration's values in."""
+    `load` copies an outer iteration's values in.  The kernel launches it
+    records (the segment sums of apply_Q) count once per replay."""
 
     STEPS = 4
 
     def __init__(self, be, P, M, max_inner: int):
         self.be, self.P, self.M, self.max_inner = be, P, M, max_inner
         self.graph = None
+        self.per_replay = {}  # kernel launches the captured graph records
 
     def _capture(self, inputs, state):
         self.inputs = [x.clone() for x in _flatten(inputs)]
@@ -381,8 +384,11 @@ class TCGGraph:
             body()
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graph = torch.cuda.CUDAGraph()
+        before = kernels.captured_counts()
         with torch.cuda.graph(self.graph):
             body()
+        self.per_replay = {k: v - before[k]
+                           for k, v in kernels.captured_counts().items()}
 
     def load(self, X, aux, radius, stop_tol, state: _TCGState):
         inputs = (X, *aux, radius, stop_tol)
@@ -395,6 +401,7 @@ class TCGGraph:
     def replay(self) -> torch.Tensor:
         """STEPS iterations; returns the (static) convergence flag."""
         self.graph.replay()
+        kernels.add_replays(self.per_replay)
         return self.state[-1]
 
 

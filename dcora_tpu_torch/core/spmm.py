@@ -32,162 +32,30 @@ it runs its plain PyTorch version of the same layout (index_select -> bmm
 reference.  What bounds each kernel on the H100, and what its design does
 about it, is written at the top of its source.
 
-Each library is built at first use with ``nvcc`` from its source in the
-package into ``dcora_tpu_torch/build/`` and loaded with ctypes;
-:func:`build_all` builds every library with one ``nvcc`` per source, all
-started together.  Nothing is compiled or loaded on import.
+The kernels are built, bound and counted by ``core/kernels.py``, which this
+module and ``core/segment.py`` (the edge path's segment sum) share;
+``BLOCK``, ``BUILD_DIR``, ``build_all``, ``library``, ``reset_launches`` and
+``launch_counts`` are reachable from here as before.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from typing import Dict, NamedTuple, Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from dcora_tpu_torch.core import kernels
+from dcora_tpu_torch.core.kernels import (  # noqa: F401  re-exported
+    BLOCK,
+    BUILD_DIR,
+    build_all,
+    launch_counts,
+    library,
+    reset_launches,
+)
+
 T_TILE = 128
-# Edge of the sub-blocks that spmm_sym and spmm_paired read: one constant,
-# compiled into their kernels (-DDCORA_BLOCK).  4 is the 3D pose block
-# (d + 1) and gives the fewest bytes (B = 8 was slower on the H100: PERF.md).
-BLOCK = 4
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the SpMM kernels cannot be built")
-
-
-class _Library:
-    """One compiled kernel library (one ``.cu`` source), built and loaded
-    on first use.  The build's file name carries a hash of the source, the
-    headers it includes and the flags; ``build_log`` keeps what ``-Xptxas
-    -v`` printed (registers, spills)."""
-
-    def __init__(self, name: str, symbols: Dict[str, list],
-                 headers: Sequence[str]):
-        self.name = name
-        self.source = os.path.join(CSRC, name + ".cu")
-        self.headers = [os.path.join(CSRC, h) for h in headers]
-        self.flags = NVCC_FLAGS + [f"-DDCORA_BLOCK={BLOCK}"]
-        self.symbols = symbols
-        self._lib = None
-        self._lock = threading.Lock()
-        self.build_seconds = None
-        self.build_log = ""
-
-    def path(self) -> str:
-        h = hashlib.sha256(" ".join(self.flags).encode())
-        for f in (self.source, *self.headers):
-            with open(f, "rb") as fh:
-                h.update(fh.read())
-        return os.path.join(BUILD_DIR,
-                            f"lib{self.name}_{h.hexdigest()[:12]}.so")
-
-    def start(self):
-        """Start nvcc unless a build of this exact source exists; returns
-        None or (process, temporary output, start time)."""
-        out = self.path()
-        if os.path.exists(out):
-            return None
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([_nvcc(), *self.flags, "-o", tmp,
-                                 self.source], stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        return proc, tmp, time.perf_counter()
-
-    def finish(self, started) -> str:
-        out = self.path()
-        if started is None:
-            return out
-        proc, tmp, t0 = started
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {self.source} "
-                               f"({proc.returncode}):\n{stdout}\n{stderr}")
-        os.replace(tmp, out)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = stdout + stderr
-        return out
-
-    def build(self) -> str:
-        """Compile the library unless a build of this exact source exists."""
-        return self.finish(self.start())
-
-    def get(self):
-        with self._lock:
-            if self._lib is None:
-                lib = ctypes.CDLL(self.build())
-                for sym, argtypes in self.symbols.items():
-                    fn = getattr(lib, sym)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                self._lib = lib
-            return self._lib
-
-
-# name -> (C symbols with their argument types, headers it includes)
-_SOURCES = {
-    "spmm_sym": ({s: [_P] * 5 + [_I, _I, _P]
-                  for s in ("dcora_spmm_sym_f32", "dcora_spmm_sym_f64")},
-                 ["blocks.cuh"]),
-    "spmm_tile": ({s: [_P] * 7 + [_I] * 3 + [_P]
-                   for s in ("dcora_spmm_tile_f32", "dcora_spmm_tile_f64")},
-                  ["blocks.cuh"]),
-    "spmm_grouped": ({s: [_P] * 6 + [_I] * 3 + [_P]
-                      for s in ("dcora_spmm_grouped_f32",
-                                "dcora_spmm_grouped_f64")},
-                     ["blocks.cuh"]),
-}
-_LIBRARIES: Dict[str, _Library] = {}
-_LIBRARIES_LOCK = threading.Lock()
-
-
-def library(name: str) -> _Library:
-    """The library of csrc/<name>.cu."""
-    with _LIBRARIES_LOCK:
-        if name not in _LIBRARIES:
-            symbols, headers = _SOURCES[name]
-            _LIBRARIES[name] = _Library(name, symbols, headers)
-        return _LIBRARIES[name]
-
-
-def build_all() -> Dict[str, _Library]:
-    """Build every kernel library, one nvcc per source, all started
-    together; then load each.  Returns {name: library}."""
-    libs = {name: library(name) for name in _SOURCES}
-    started = {name: lib.start() for name, lib in libs.items()}
-    for name, s in started.items():
-        libs[name].finish(s)
-    for lib in libs.values():
-        lib.get()
-    return libs
-
-
-def _entry(lib: str, X: torch.Tensor):
-    suffix = "f32" if X.dtype == torch.float32 else "f64"
-    return getattr(library(lib).get(), f"dcora_{lib}_{suffix}")
-
-
-def _stream(X: torch.Tensor) -> int:
-    return torch.cuda.current_stream(X.device).cuda_stream
 
 
 # --------------------------------------------------------------------------
@@ -231,11 +99,6 @@ def _check_blocks(name: str, vals: torch.Tensor):
     if vals.dim() != 3 or vals.shape[1:] != (BLOCK, BLOCK):
         raise ValueError(f"{name}: vals must be [ne, B, B] sub-blocks with "
                          f"B = {BLOCK}, got {tuple(vals.shape)}")
-
-
-def _launch(name: str, err: int):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def to_device(blocks, dtype: torch.dtype, device):
@@ -359,6 +222,7 @@ def spmm_strips_plain(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
     return _from_strips(Ws)
 
 
+@kernels.counted
 def spmm_sym(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
     """W = X Q from the StripCSR of Q (build_output_csr).
 
@@ -380,17 +244,15 @@ def spmm_sym(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
     if X.device.type == "cpu":
         return spmm_strips_plain(strips, X)
     _check_kernel("spmm_sym", X, vals, ptr=ptr, src=src)
-    fn = _entry("spmm_sym", X)
+    fn = kernels.entry("spmm_sym", X.dtype)
     W = torch.empty_like(X)
     with torch.cuda.device(X.device):
-        _launch("spmm_sym", fn(ptr.data_ptr(), src.data_ptr(),
-                               vals.data_ptr(), X.data_ptr(), W.data_ptr(),
-                               nstrip, r_pad, _stream(X)))
-    spmm_sym.launches += 1
+        kernels.check_launch("spmm_sym", fn(
+            ptr.data_ptr(), src.data_ptr(), vals.data_ptr(), X.data_ptr(),
+            W.data_ptr(), nstrip, r_pad, kernels.stream(X)))
+    kernels.count_launch(spmm_sym)
     return W
 
-
-spmm_sym.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -474,6 +336,7 @@ def spmm_symmetric_plain(blocks: TileBlocks, X: torch.Tensor
     return _from_strips(Ws)
 
 
+@kernels.counted
 def spmm_symmetric(blocks: TileBlocks, X: torch.Tensor) -> torch.Tensor:
     """W = X Q from the per-tile list's non-empty sub-blocks (TileBlocks,
     compact_tiles), each block read once.
@@ -504,18 +367,16 @@ def spmm_symmetric(blocks: TileBlocks, X: torch.Tensor) -> torch.Tensor:
     _check_kernel("spmm_symmetric", X, vals, tile_ptr=tile_ptr,
                   tile_row=tile_row, tile_col=tile_col, ent_blk=ent_blk)
     r_pad, kpad = X.shape
-    fn = _entry("spmm_tile", X)
+    fn = kernels.entry("spmm_tile", X.dtype)
     W = torch.empty_like(X)
     with torch.cuda.device(X.device):
-        _launch("spmm_symmetric", fn(
+        kernels.check_launch("spmm_symmetric", fn(
             tile_ptr.data_ptr(), tile_row.data_ptr(), tile_col.data_ptr(),
             ent_blk.data_ptr(), vals.data_ptr(), X.data_ptr(), W.data_ptr(),
-            ntile, kpad, r_pad, _stream(X)))
-    spmm_symmetric.launches += 1
+            ntile, kpad, r_pad, kernels.stream(X)))
+    kernels.count_launch(spmm_symmetric)
     return W
 
-
-spmm_symmetric.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -566,6 +427,7 @@ def spmm_paired_plain(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
     return _from_strips(Ws)
 
 
+@kernels.counted
 def spmm_paired(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
     """W = X Q from the compacted row-group packs (PairBlocks), every
     bucket in one launch.
@@ -591,27 +453,13 @@ def spmm_paired(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
     _check_kernel("spmm_paired", X, vals, run_ptr=run_ptr, run_col=run_col,
                   ent_col=ent_col)
     r_pad, kpad = X.shape
-    fn = _entry("spmm_grouped", X)
+    fn = kernels.entry("spmm_grouped", X.dtype)
     W = torch.empty_like(X)
     with torch.cuda.device(X.device):
-        _launch("spmm_paired", fn(
+        kernels.check_launch("spmm_paired", fn(
             run_ptr.data_ptr(), run_col.data_ptr(), ent_col.data_ptr(),
             vals.data_ptr(), X.data_ptr(), W.data_ptr(), nrun, kpad, r_pad,
-            _stream(X)))
-    spmm_paired.launches += 1
+            kernels.stream(X)))
+    kernels.count_launch(spmm_paired)
     return W
 
-
-spmm_paired.launches = 0
-
-_COUNTED = (spmm_sym, spmm_symmetric, spmm_paired)
-
-
-def reset_launches():
-    """Set every kernel's launch count to 0."""
-    for fn in _COUNTED:
-        fn.launches = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in _COUNTED}

@@ -41,6 +41,7 @@ from dcora_tpu_torch.core.init import (
 )
 from dcora_tpu_torch.core.lifted import RAState
 from dcora_tpu_torch.core.rtr import riemannian_gradient
+from dcora_tpu_torch.core.segment import SegmentMap, build_map, segment_sum
 from dcora_tpu_torch.io import read_g2o_file
 from dcora_tpu_torch.measurements import RelativePosePoseMeasurement
 from dcora_tpu_torch.solvers import resolve_device
@@ -56,13 +57,13 @@ from dcora_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 logger = logging.getLogger(__name__)
 
 
-def central_eval(P, G0, X, pose_block_ids, num_robots):
+def central_eval(P, G0, X, pose_blocks: SegmentMap, num_robots):
     """cost, Riemannian gradnorm and per-robot block gradient norms, read
-    back in one copy (reference loop: MultiRobotExample.cpp:263-305)."""
+    back in one copy (reference loop: MultiRobotExample.cpp:263-305).
+    pose_blocks maps every pose onto its robot (segment.build_map)."""
     RGrad = riemannian_gradient(P, X, G0)
     sq = (RGrad.rot ** 2).sum(dim=(1, 2)) + (RGrad.trn ** 2).sum(dim=1)
-    per_block = torch.zeros(num_robots, dtype=sq.dtype, device=sq.device)
-    per_block.index_add_(0, pose_block_ids, sq)
+    per_block = segment_sum(sq, pose_blocks, num_robots)
     out = torch.cat([torch.stack([prob.cost(P, X, G0), RGrad.norm()]),
                      torch.sqrt(per_block)]).tolist()
     return out[0], out[1], out[2:]
@@ -217,9 +218,8 @@ def run(num_robots: int, g2o_path: str, acceleration: bool = True,
     rbcd_s = 0.0
 
     # robot id of every pose (for greedy block-gradient norms)
-    pose_block_ids = torch.as_tensor(
-        [min(i // max(n // num_robots, 1), num_robots - 1)
-         for i in range(n)], dtype=torch.int64, device=dev)
+    pose_blocks = build_map([[min(i // max(n // num_robots, 1),
+                                  num_robots - 1) for i in range(n)]], dev)
 
     if checkpoint_path and os.path.exists(checkpoint_path):
         Xcurr, r, _, _ = load_checkpoint(checkpoint_path, device=dev)
@@ -386,7 +386,7 @@ def run(num_robots: int, g2o_path: str, acceleration: bool = True,
                 trn=torch.cat([a.get_X().trn for a in agents]),
             )
             cost_h, gradnorm, block_norms = central_eval(
-                P, G0, Xopt, pose_block_ids, num_robots)
+                P, G0, Xopt, pose_blocks, num_robots)
             cost = 2.0 * cost_h
             cost_trace.append(cost)
             grad_trace.append(gradnorm)

@@ -7,7 +7,7 @@ Here the dominant cost, the S matvec, becomes
     S v  =  sum_a ( v Q_a )  -  v Lambda(X),
 
 where Q_a holds one shard of the measurement SoA.  A rank runs one
-``index_add_`` pass of ``problem.apply_Q`` over its shards together, and an
+segment-sum pass of ``problem.apply_Q`` over its shards together, and an
 ``all_reduce`` over the torch.distributed group adds the ranks' partial
 products (the JAX package's ``psum`` over the mesh axis).  The Lambda(X)
 term is block-diagonal and applied on every rank.  Shards are padded with
@@ -38,7 +38,7 @@ from dcora_tpu_torch.core.certify import (
     dual_certificate_blocks,
 )
 from dcora_tpu_torch.core.lifted import RAState
-from dcora_tpu_torch.core.problem import ProblemData
+from dcora_tpu_torch.core.problem import ProblemData, with_segments
 from dcora_tpu_torch.parallel.rbcd import group_shape
 from dcora_tpu_torch.types import ProblemDims
 
@@ -63,7 +63,7 @@ def shard_problem_edges(P: ProblemData, num_shards: int) -> ProblemData:
                 (A, chunk) + x.shape[1:])
     kd, td = P.prior_kdiag, P.prior_tdiag
     return P._replace(
-        **fields, prior_G=None,
+        **fields, prior_G=None, seg=None,
         prior_kdiag=None if kd is None else (kd / A).expand(A, *kd.shape),
         prior_tdiag=None if td is None else (td / A).expand(A, *td.shape))
 
@@ -76,7 +76,7 @@ def _shards_of(P_sh: ProblemData, lo: int, hi: int) -> ProblemData:
     for name in ("prior_kdiag", "prior_tdiag"):
         x = getattr(P_sh, name)
         out[name] = None if x is None else x[lo:hi].sum(0)
-    return ProblemData(**out)
+    return with_segments(ProblemData(**out))
 
 
 def make_sharded_matvec(P_sh: ProblemData, C: Certificate, dims: ProblemDims,

@@ -13,7 +13,7 @@ agent's update inside ``shard_map``, here the stack is one problem:
 
   * the edge path lays the agents side by side in one index space, agent
     a's slot i at ``a * (slots per agent + 1) + i`` (the ``+ 1`` is its zero
-    pad slot), so one ``index_select`` / ``index_add_`` pass of
+    pad slot), so one ``index_select`` / segment-sum pass of
     ``problem.apply_Q`` serves the whole fleet (:func:`fleet_operator`);
   * the tiled path lays the agents' flat states side by side along the
     scalar axis, ``[r_pad, A, kpad]``, with a block-diagonal strip CSR
@@ -263,8 +263,8 @@ def build_parallel_problem(graphs: List[LocalGraph]) -> ParallelRBCDProblem:
     P_loc = P._replace(**{k: torch.clamp(getattr(P, k), max=limit[sp])
                           for k, sp in _SPACE.items()})
     Ms = [prob.build_preconditioner_host(
-        prob.ProblemData(*(x[a] for x in P_loc[:24])), n_max, l_max, b_max,
-        d, regs[a]) for a in range(A)]
+        prob.with_segments(prob.ProblemData(*(x[a] for x in P_loc[:24]))),
+        n_max, l_max, b_max, d, regs[a]) for a in range(A)]
 
     def ints(xs):
         return torch.as_tensor(np.stack(xs))
@@ -332,7 +332,7 @@ def fleet_operator(Pst: prob.ProblemData, lo: int, hi: int,
         if name in _SPACE:
             x = x + strides[_SPACE[name]] * torch.arange(A)[:, None]
         out[name] = x.reshape(-1, *x.shape[2:]).to(device)
-    return prob.ProblemData(**out)
+    return prob.with_segments(prob.ProblemData(**out))
 
 
 def _merge(X: RAState) -> RAState:
@@ -483,7 +483,8 @@ def build_stacked_tiled(pp: ParallelRBCDProblem, lo: int, hi: int,
     when the agents have spheres, per-pose otherwise; no BTD."""
     per = []
     for a in range(lo, hi):
-        P_a = prob.ProblemData(*(x[a] for x in pp.P_loc[:24]))
+        P_a = prob.with_segments(
+            prob.ProblemData(*(x[a] for x in pp.P_loc[:24])))
         per.append(tiled.build_tiled(
             P_a, pp.dims, T=T, dtype=dtype, reg=float(pp.regs[a]),
             tile_precond=pp.l_max > 0, device="cpu", pack="bucketed"))

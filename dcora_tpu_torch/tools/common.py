@@ -1,7 +1,7 @@
 """Helpers shared by the port's tools and chip_smoke.py: the card's identity,
 CUDA-event timing, the SpMM's and the BTD solve's bounds, the SpMM's
-library yardstick, the default generated 10,648-pose grid and the generated
-RA-SLAM sets.
+library yardstick, the default generated 10,648-pose grid, the generated
+RA-SLAM sets and the edge path's tCG solve on them.
 
 Every measurement here needs a CUDA device; :func:`require_cuda` refuses to
 go on without one (the tools never fall back to the CPU).
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import os
 import subprocess
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -207,6 +207,46 @@ def ra_set(directory: str, poses_per_robot: int) -> str:
     return datasets.generate_ra_slam_pyfg(
         os.path.join(directory, f"ra{5 * poses_per_robot}.pyfg"),
         poses_per_robot=poses_per_robot, **RA_KW)
+
+
+class EdgeTCG(NamedTuple):
+    """The edge path's tCG solve of an RA set at rank r from the odometry
+    init, through its CUDA graph (rtr.TCGGraph): solve() runs one solve of
+    up to `iters` iterations from the same start."""
+
+    g: object               # the set's LocalGraph
+    P: object               # its ProblemData on the card
+    X: object               # the odometry init, on the card
+    graph: object           # rtr.TCGGraph
+    solve: Callable
+
+
+def edge_tcg(path: str, r: int = 3, iters: int = 200) -> EdgeTCG:
+    """EdgeTCG of the .pyfg set at `path` on the card."""
+    from dcora_tpu_torch.core import rtr
+    from dcora_tpu_torch.drivers.single_robot_raslam import (
+        odometry_init_global,
+    )
+    from dcora_tpu_torch.io import read_pyfg_file
+    from dcora_tpu_torch.io.remap import get_global_measurements
+    from dcora_tpu_torch.solvers import make_preconditioner
+
+    ds = read_pyfg_file(path)
+    g = load_graph(path, r)
+    P = g.problem_data(device="cuda")
+    M = make_preconditioner(g, P)
+    X = odometry_init_global(ds, get_global_measurements(ds)).to("cuda")
+    egrad = rtr.RA_BACKEND.applyQ(P, X)
+    grad = rtr.RA_BACKEND.tangent(P, X, egrad)
+    flat = rtr.tmap(torch.zeros_like, egrad)
+    radius = torch.tensor(1e8, dtype=torch.float64, device="cuda")
+    graph = rtr.TCGGraph(rtr.RA_BACKEND, P, M, iters)
+
+    def solve():
+        return rtr.truncated_cg(P, X, grad, flat, M, radius, iters, 1e-12,
+                                1.0, graph=graph)
+
+    return EdgeTCG(g, P, X, graph, solve)
 
 
 def btd_bound_ms(nt: int, T: int, r_pad: int, dtype: torch.dtype,

@@ -51,10 +51,11 @@ from dcora_tpu_torch.tools import common
 
 class CallLog:
     """Wraps the staircase's RTR calls (solvers.rtr, staircase.rtr) and the
-    tCG solver: one record per RTR call, and, when `profile` is set, a
-    torch.profiler summary of the first call of each kind.  Profiling
-    slows every later kernel launch of the process, so a caller that
-    times the whole solve turns it off."""
+    tCG solver: one record per RTR call (its cost and gradnorm at the end
+    included), and, when `profile` is set, a torch.profiler summary of the
+    first call of each kind (CUDA only).  Profiling slows every later
+    kernel launch of the process, so a caller that times the whole solve
+    turns it off.  Without profiling it also logs a solve on the CPU."""
 
     def __init__(self, profile: bool = True):
         self.profile = profile
@@ -74,13 +75,16 @@ class CallLog:
             flat = be is rtr_mod.FLAT_BACKEND
             kind = (f"{'tiles' if flat else 'edge'} "
                     f"{str(P.dtype if flat else torch.float64)[6:]}")
-            torch.cuda.synchronize()
+            lead = X0 if flat else X0.rot
+            sync = (torch.cuda.synchronize if lead.is_cuda
+                    else (lambda: None))
+            sync()
             self._inner, t0 = 0, time.perf_counter()
             if self.profile and kind not in self.profiles:
                 acts = [torch.profiler.ProfilerActivity.CUDA]
                 with torch.profiler.profile(activities=acts) as prof:
                     res = real_rtr(P, G, M, X0, cfg, be=be, radius0=radius0)
-                    torch.cuda.synchronize()
+                    sync()
                     wall = time.perf_counter() - t0
                 ks = _kernel_summary(prof)
                 self.overhead_s += time.perf_counter() - t0 - wall
@@ -90,12 +94,13 @@ class CallLog:
                     device_idle_share=1.0 - ks["kernel_busy_s"] / wall)
             else:
                 res = real_rtr(P, G, M, X0, cfg, be=be, radius0=radius0)
-                torch.cuda.synchronize()
+                sync()
                 wall = time.perf_counter() - t0
             self.calls.append(dict(
                 kind=kind, rank=None if flat else X0.r,
                 r_pad=X0.shape[0] if flat else None,
                 outers=res.outer_iters, tcg_steps=self._inner,
+                f=float(res.f_final),
                 gradnorm=float(res.gradnorm_final), seconds=wall,
                 ms_per_tcg_step=wall * 1e3 / max(self._inner, 1)))
             return res
@@ -159,7 +164,8 @@ def _solve(path: str) -> dict:
                 certified=st.certified, gradnorm=st.gradnorm_final,
                 init_s=res["init_s"], read_s=res.get("read_s"),
                 stages_s=dict(st.stage_seconds),
-                spmm_launches=sum(spmm.launch_counts().values()),
+                spmm_launches=sum(v for k, v in spmm.launch_counts().items()
+                                  if k.startswith("spmm_")),
                 launches=spmm.launch_counts(),
                 btd_applications={f"{r}/{dt}": c
                                   for (r, dt), c in counts.items()},

@@ -157,3 +157,20 @@ def test_lanczos_breakdown_restart_uses_generator():
                                    atol=1e-12)
     assert torch.equal(outs[0], outs[1])
     assert not torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.parametrize("eta", [0.0, 1e-4])
+def test_host_min_eig_repeats_within_a_process(critical, eta):
+    """The host path's ARPACK calls start from seeded vectors: the same S
+    gives the same estimate and vector on every call of a process (ARPACK's
+    own start vector comes from a stream that moves on from call to call).
+    eta 0 runs the largest-eigenvalue shift, eta 1e-4 the LDL^T proof and
+    the shift-invert inside its inertia bracket, at the non-critical
+    rank-3 start."""
+    P, X = critical["Pt"], critical["X3t"]
+    C = tcert.dual_certificate_blocks(P, X)
+    runs = [tcert._min_eig_host(P, C, X.dims, eta) for _ in range(3)]
+    assert not runs[0][0] and runs[0][1] < -eta
+    for ok, theta, v in runs[1:]:
+        assert ok == runs[0][0] and theta == runs[0][1]
+        assert np.array_equal(v, runs[0][2])

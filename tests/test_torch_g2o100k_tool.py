@@ -99,8 +99,9 @@ def test_record_fields(port_record):
     assert rec["in_progress"] is False and rec["step"] == "done"
     assert rec["platform"] == "cpu" and rec["reader"] == "native"
     assert len(rec["chordal_cg_iters"]) == 2
+    # the plain versions here: no kernel launches
     assert rec["launches"] == {"spmm_sym": 0, "spmm_symmetric": 0,
-                               "spmm_paired": 0}  # the plain versions here
+                               "spmm_paired": 0, "segment_sum": 0}
     assert rec["rss_peak_ldl_gb"] > 0 and rec["elapsed_s"] > 0
 
 

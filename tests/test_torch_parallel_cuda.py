@@ -3,16 +3,18 @@
   * The batched round (edge path at float64, its tCG replayed as a CUDA
     graph; tiled path at float64 tiles, its tile products through kernel
     1) on the card against the same round on the CPU: the iterate to 1e-9
-    of its largest entry (index_add_ and the kernel sum in other orders on
-    the card, and CG carries that along).
+    of its largest entry (the segment sums' long rows and the SpMM kernel
+    sum in other orders on the card, and CG carries that along).
   * Kernel 1 (csrc/spmm_sym.cu) on the stacked strips of 4 agents against
     its plain version spmm_strips_plain: 1e-12 of max|W| in f64, 1e-5 in
     f32 (a different summation order plus f32 rounding).
   * Exactly one launch of kernel 1 per batched tile product of a tiled
     round, and no launch of kernels 2 or 3.
   * The round inside a one-rank NCCL group (a TCP store on localhost)
-    bitwise equal to the round with no group (torch's deterministic
-    algorithms on, so that index_add_ sums in one order).
+    bitwise equal to the round with no group, and two rounds with no
+    group bitwise equal: the edge path's segment sums are the
+    deterministic kernel csrc/segment_sum.cu, so no global switch of
+    torch's is needed.
 
 Imports only torch, numpy and the port, so it runs where JAX is not
 installed; every test skips without a CUDA device.  On the card:
@@ -147,9 +149,9 @@ def test_one_launch_per_batched_product(fleet):
 
 
 def test_one_rank_nccl_round_is_bitwise_local(fleet):
-    """The tiled round (float32 tiles, the drivers' default on the card)
-    under torch's deterministic algorithms, so that index_add_ sums in one
-    order from call to call."""
+    """The tiled round (float32 tiles, the drivers' default on the card),
+    with torch's deterministic switch off: in a group and alone, and alone
+    twice, bitwise equal."""
     import torch.distributed as dist
 
     from dcora_tpu_torch.parallel.rbcd import ParallelRound, init_group
@@ -157,21 +159,18 @@ def test_one_rank_nccl_round_is_bitwise_local(fleet):
     pp, Xb = fleet
     X = Xb.to("cuda")
     kw = dict(backend="tiled", tile_dtype=torch.float32, device="cuda")
-    prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    assert not torch.are_deterministic_algorithms_enabled()
+    local = ParallelRound(pp, _cfg(), **kw)(X)
+    again = ParallelRound(pp, _cfg(), **kw)(X)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    group = init_group("cuda", f"tcp://localhost:{port}", 1, 0)
     try:
-        local = ParallelRound(pp, _cfg(), **kw)(X)
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        group = init_group("cuda", f"tcp://localhost:{port}", 1, 0)
-        try:
-            assert dist.get_backend(group) == "nccl"
-            in_group = ParallelRound(pp, _cfg(), group=group, **kw)(X)
-        finally:
-            dist.destroy_process_group()
+        assert dist.get_backend(group) == "nccl"
+        in_group = ParallelRound(pp, _cfg(), group=group, **kw)(X)
     finally:
-        torch.use_deterministic_algorithms(prev)
-    for a, b in zip(in_group[0], local[0]):
-        assert torch.equal(a, b)
+        dist.destroy_process_group()
+    for a, b, c in zip(in_group[0], local[0], again[0]):
+        assert torch.equal(a, b) and torch.equal(c, b)
     assert torch.equal(in_group[1], local[1])

@@ -19,6 +19,7 @@ from dcora_tpu_torch import convert
 from dcora_tpu_torch.core import lifted as tlifted
 from torch_port_common import (
     assert_close,
+    assert_segments_equal,
     assert_state_close,
     build_graphs,
     jax_state,
@@ -51,6 +52,8 @@ def test_problem_data_from_graph_matches_converted(case):
                 assert torch.equal(x, y), name
         elif a is None or b is None:
             assert a is None and b is None, name
+        elif name == "seg":
+            assert_segments_equal(a, b)
         else:
             assert a.dtype == b.dtype and torch.equal(a, b), name
 

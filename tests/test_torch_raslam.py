@@ -45,7 +45,12 @@ from dcora_tpu_torch.core.graph import LocalGraph as TGraph
 from dcora_tpu_torch.io import read_pyfg_file as tread
 from dcora_tpu_torch.io.remap import get_global_measurements as tglobal
 from dcora_tpu_torch.types import GraphType as TGraphType
-from torch_port_common import assert_close, assert_state_close, np_of
+from torch_port_common import (
+    assert_close,
+    assert_segments_equal,
+    assert_state_close,
+    np_of,
+)
 
 ETA = 1e-4  # the RA driver's certificate tolerance
 
@@ -87,6 +92,8 @@ def test_ra_graph_dims_and_problem_data(ra):
         elif name == "prior_G":
             for x, y in zip(a, b):
                 assert_close(x, y, rtol=1e-12)
+        elif name == "seg":
+            assert_segments_equal(a, b)
         elif a.dtype.is_floating_point:
             assert_close(a, b, rtol=1e-12)  # native vs numpy parse: ulps
         else:

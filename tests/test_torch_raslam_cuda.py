@@ -124,8 +124,9 @@ def test_tcg_graph_matches_loop(problem, max_inner):
     """The edge path's tCG through its CUDA graph against the iterations
     issued one by one, on the card and on the CPU, at two outer points
     (the second reloads the captured graph): the same step count, and eta
-    and Heta to 1e-9 of their max.  index_add_ sums in another order from
-    call to call, and CG carries such differences along: on the CPU a
+    and Heta to 1e-9 of their max.  The card sums in another order than
+    the CPU (cuBLAS, the segment sums' long rows), and CG carries such
+    differences along: on the CPU a
     1e-15 relative change of the gradient moves Heta by 2.3e-14 after 6
     iterations, 2.6e-12 after 7 and 6.4e-7 after 10 here, so the solves
     are kept short.  Neither max_inner is a multiple of TCGGraph.STEPS,

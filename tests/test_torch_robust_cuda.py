@@ -11,8 +11,9 @@
   * One agent's update_X (the one-accepted-step RTR on the restricted
     problem, its tCG replayed as a CUDA graph) on the card against the
     same agent on the CPU: the same number of tries and acceptance, and
-    the iterate to 1e-9 of its largest entry over three rounds (index_add_
-    sums in another order on the card, and CG carries that along).
+    the iterate to 1e-9 of its largest entry over three rounds (the card's
+    products sum in other orders than the CPU's, and CG carries that
+    along).
 
 Imports only torch, numpy and the port, so it runs where JAX is not
 installed; every test skips without a CUDA device.  On the card:

@@ -43,6 +43,14 @@ def assert_close(a, b, rtol=F64_RTOL, scale=None):
     assert err <= rtol, f"relative error {err:.3e} > {rtol:.1e}"
 
 
+def assert_segments_equal(a, b):
+    """Two problem.Segments (the port's segment maps) are identical."""
+    for ma, mb in zip(a, b):
+        assert ma.bounds == mb.bounds
+        for x, y in ((ma.idx, mb.idx), (ma.perm, mb.perm), (ma.ptr, mb.ptr)):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
 def assert_state_close(A, B, rtol=F64_RTOL):
     scale = max(float(np.abs(np_of(x)).max(initial=0)) for x in B)
     for a, b in zip(A, B):
