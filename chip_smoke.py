@@ -87,11 +87,14 @@ the BTD phase holds the preconditioner's CUDA graph against its plain loop
 there, and the tCG phase the edge path's tCG graph against its iterations
 issued one by one, and times one application or iteration of each.  The
 repeat phase holds the segment-sum kernel (``csrc/segment_sum.cu``) against
-its plain version (``index_add_`` on the card) on ra10k's edge
-contributions at rank 3, timed beside ``index_add_`` and its bound, and
-checks that two runs are bitwise equal: ``apply_Q`` at ra10k rank 3, the
-200-iteration graph tCG solve, grid10k's chordal init and DC2-PGO's
-``central_eval``.
+its plain version (``index_add_`` on the card) on one ``apply_Q``'s three
+blocks of edge contributions at ra10k rank 3, in one launch, timed beside
+the three blocks launched one by one, three ``index_add_`` calls and the
+bound, and checks that two runs are bitwise equal: ``apply_Q`` at ra10k
+rank 3, the 200-iteration graph tCG solve, grid10k's chordal init,
+DC2-PGO's ``central_eval``, kernels 2 and 3 on grid10k (r_pad 8 and 16,
+f32 and f64) and a flat-backend tCG through kernel 3 on grid10k's paired
+f32 tiles.  The paired solve prints its iterate's SHA-256.
 
 Sequential and fail-closed: every phase prints a line and any failure
 raises, so the exit code is non-zero and the result line is not printed.
@@ -493,6 +496,7 @@ def slice_phase(torch, name, path, ref):
 
     from dcora_tpu_torch.drivers.single_robot_pgo import run
     from dcora_tpu_torch.io import read_g2o_file
+    from dcora_tpu_torch.tools import common
     from dcora_tpu_torch.verification import verify_solution
 
     res = {}
@@ -517,13 +521,14 @@ def slice_phase(torch, name, path, ref):
     require(rep["certified_indep"] is True,
             f"{name}: the LDL^T verifier does not witness S + eta I >= 0")
     stages = " ".join(f"{k}={v:.2f}s" for k, v in st.stage_seconds.items())
+    sha = common.state_sha256(st.X)
     phase(f"[slice] {name}: n={ref['n']} certified={st.certified} "
           f"rank={st.final_rank} f*={f!r} (reference {ref['f']!r}, rel "
           f"{rel:.1e}) ldl_witness=True wall={wall:.2f}s "
           f"(init {res['init_s']:.2f}s, staircase "
           f"{res['staircase_s']:.2f}s: {stages}) "
-          f"verify={time.perf_counter() - t1:.2f}s")
-    return wall
+          f"verify={time.perf_counter() - t1:.2f}s x_sha256={sha}")
+    return wall, sha
 
 
 def paired_phase(torch, path, ref):
@@ -537,7 +542,7 @@ def paired_phase(torch, path, ref):
     products, restore = counting_products(tiled)
     try:
         spmm.reset_launches()
-        wall = slice_phase(torch, "grid10k paired pack", path, ref)
+        wall, sha = slice_phase(torch, "grid10k paired pack", path, ref)
         counts = spmm.launch_counts()
     finally:
         restore()
@@ -552,6 +557,8 @@ def paired_phase(torch, path, ref):
             f"the paired solve launched another SpMM kernel: {counts}")
     phase(f"[launches] paired solve: {counts}, {products[0]} tile products "
           f"(wall {wall:.2f}s)")
+    phase(f"[paired] grid10k paired pack: rank {ref['rank']}, iterate "
+          f"x_sha256={sha}")
     return counts
 
 
@@ -579,8 +586,7 @@ def bench_phase(torch, path):
 def tcg_phase(torch, path):
     """The edge path's tCG on the ra10k problem at rank 3, at the odometry
     init: its CUDA graph (core/rtr.TCGGraph) against the iterations issued
-    one by one on the same inputs, over at most 6 iterations (CG carries
-    the atomics' rounding differences along, so longer solves drift apart);
+    one by one on the same inputs, over at most 6 iterations;
     then one 200-iteration solve of each, timed in turns.  The timed
     solves take the Hessian without its Weingarten term (a zero Euclidean
     gradient), which is positive semidefinite on the tangent space, so
@@ -644,11 +650,11 @@ def repeat_phase(torch, paths, mr):
     the 200-iteration tCG solve through its CUDA graph there, grid10k's
     chordal init, and DC2-PGO's central_eval (at its certified smallGrid3D
     optimum, 25 poses per robot, and at grid10k's chordal init at rank 5 in
-    5 robots, rows of ~2,130 poses).  Then the segment-sum kernel against
-    its plain version (index_add_ per part on the card): on grid10k's
-    per-robot rows, and on ra10k's three blocks of edge contributions at
-    rank 3, in f64 (the edge path's type) and f32, timed in turns beside
-    index_add_ (the library call) and its bound.  Returns the kernel's
+    5 robots, rows of ~2,130 poses), and on grid10k's paired build kernels
+    2 and 3 and a flat-backend tCG (spmm_repeats).  Then the segment-sum
+    kernel against its plain version (index_add_ per part on the card): on
+    grid10k's per-robot rows, and on one apply_Q's three blocks of edge
+    contributions at ra10k rank 3 (seg_rows).  Returns the kernel's
     rows."""
     import numpy as np
 
@@ -692,6 +698,7 @@ def repeat_phase(torch, paths, mr):
         return ([central_eval(Pc, G0, X, blocks, robots) for _ in range(2)],
                 (Pc, G0, X, blocks))
 
+    checks.update(spmm_repeats(torch, paths["grid10k"]))
     path, res = mr
     e_small, _ = evals(path, res.X, 5)
     e_grid, grid = evals(paths["grid10k"], lifted.pad_rank(
@@ -724,59 +731,147 @@ def repeat_phase(torch, paths, mr):
             f"index_add_: {err:.3e} > {SEG_TOL['float64']:.0e} * "
             f"{scale:.3e}")
 
+    return seg_rows(torch, P, X)
+
+
+def seg_rows(torch, P, X):
+    """One apply_Q's segment sums on ra10k at rank 3 (rotations,
+    translations, spheres), in f64 (the edge path's type) and f32: the
+    one launch of segment.segment_sums against the three blocks launched
+    one by one (segment.segment_sum each), the plain version (index_add_
+    per part on the card) and three index_add_ calls (the library call),
+    each held to the plain version, the one launch bitwise to the three;
+    timed in turns (events), on the device (profiler), and the wrapper's
+    host us per call (issue time of 1,000 calls); the bound is the three
+    blocks' bytes at the data-sheet HBM rate."""
+    from dcora_tpu_torch.core import problem as prob, segment
+    from dcora_tpu_torch.tools import common
+
     rows, gbs = [], hbm_gbs(torch)
-    blocks = prob.edge_contributions(P, X)
     nums = (X.rot.shape[0], X.trn.shape[0], X.sph.shape[0])
     for dt in (torch.float64, torch.float32):
         dts = str(dt).split(".")[-1]
-        for part, c, m, num in zip(("rot", "trn", "sph"), blocks, P.seg,
-                                   nums):
-            c = c.to(dt).contiguous()
-            Z = torch.zeros((max(num, m.nseg),) + c.shape[1:], dtype=dt,
-                            device="cuda")
-            # the index array on the card, so that neither the plain
-            # version nor index_add_ times a copy from the host
-            md = m._replace(idx=m.idx.to("cuda"))
-            fns = [lambda c=c, m=m, num=num: segment.segment_sum(c, m, num),
-                   lambda c=c, m=md, num=num: segment.segment_sum_plain(
-                       c, m, num),
-                   lambda c=c, m=md, Z=Z: Z.index_add(0, m.idx, c)]
-            out, plain, lib = (f() for f in fns)
+        blocks = [(c.to(dt).contiguous(), m, num) for c, m, num in
+                  zip(prob.edge_contributions(P, X), P.seg, nums)]
+        # the index arrays on the card, so that neither the plain version
+        # nor index_add_ times a copy from the host
+        on_card = [(c, m._replace(idx=m.idx.to("cuda")), num)
+                   for c, m, num in blocks]
+        Z = [torch.zeros((max(num, m.nseg),) + c.shape[1:], dtype=dt,
+                         device="cuda") for c, m, num in blocks]
+        fns = [lambda b=blocks: segment.segment_sums(b),
+               lambda b=blocks: [segment.segment_sum(*x) for x in b],
+               lambda b=on_card: [segment.segment_sum_plain(*x) for x in b],
+               lambda b=on_card, Z=Z: [z.index_add(0, m.idx, c)
+                                       for (c, m, _), z in zip(b, Z)]]
+        one, three, plain, lib = (f() for f in fns)
+        again = fns[0]()
+        torch.cuda.synchronize()
+        err, scale = 0.0, 0.0
+        for o, t, p, li, a, (_, _, num), part in zip(
+                one, three, plain, lib, again, blocks, ("rot", "trn", "sph")):
+            s = float(p.abs().max())
+            e = max(float((o - p).abs().max()), float((o - li[:num])
+                                                      .abs().max()))
+            require(bool(torch.isfinite(o).all()),
+                    f"segment_sums {part} {dts}: output not finite")
+            require(e <= SEG_TOL[dts] * s, f"segment_sums {part} {dts} "
+                    f"disagrees with index_add_: {e:.3e} > "
+                    f"{SEG_TOL[dts]:.0e} * {s:.3e}")
+            require(torch.equal(o, t), f"segment_sums {part} {dts}: the one "
+                    "launch differs from the block's own launch")
+            require(torch.equal(o, a), f"segment_sums {part} {dts}: two "
+                    "launches differ")
+            err, scale = max(err, e), max(scale, s)
+        ms = common.time_turns_ms(fns)
+        dev_ms = [common.device_ms(f) for f in fns]
+        host_us = []
+        for f in fns[:2]:
             torch.cuda.synchronize()
-            scale = float(plain.abs().max())
-            err = max(float((out - plain).abs().max()),
-                      float((out - lib[:num]).abs().max()))
-            require(bool(torch.isfinite(out).all()),
-                    f"segment_sum {part} {dts}: output not finite")
-            require(err <= SEG_TOL[dts] * scale, f"segment_sum {part} {dts} "
-                    f"disagrees with index_add_: {err:.3e} > "
-                    f"{SEG_TOL[dts]:.0e} * {scale:.3e}")
-            require(torch.equal(out, fns[0]()), f"segment_sum {part} {dts}: "
-                    "two launches differ")
-            ms = common.time_turns_ms(fns)
-            dev_ms = [common.device_ms(f) for f in fns]
-            K, w = c.shape[0], c[0].numel()
-            esize = c.element_size()
-            nbytes = (K + num) * w * esize + 4 * (K + m.nseg + 1)
-            bound = max((nbytes / (gbs * 1e6), "bytes"),
-                        (K * w / common.PEAK_FLOPS[dt] * 1e3, "operations"))
-            rows.append(dict(kernel="segment_sum", problem=f"ra10k {part}",
-                             dtype=dts, max_abs_err=err, ms=ms[0],
-                             plain_ms=ms[1], library_ms=ms[2],
-                             bound_ms=bound[0], bound_by=bound[1],
-                             device_ms=dev_ms))
-            phase(f"[kernel] segment_sum ra10k r=3 {part} {dts}: K={K} "
-                  f"w={w} rows={num} longest row "
-                  f"{int((m.ptr[1:] - m.ptr[:-1]).max())} "
-                  f"max_abs_err={err:.3e} (rel {err / scale:.2e}) "
-                  f"kernel_ms={ms[0]:.4f} plain_ms={ms[1]:.4f} "
-                  f"index_add_ms={ms[2]:.4f} bound_ms={bound[0]:.5f} "
-                  f"({bound[1]}, {nbytes / 1e6:.3f} MB) (per launch, "
-                  f"{common.LAUNCHES} back to back, median of 3 turns; "
-                  f"events, so the host's issue time bounds them); device "
-                  f"ms (profiler) kernel {dev_ms[0]:.5f} plain "
-                  f"{dev_ms[1]:.5f} index_add {dev_ms[2]:.5f}")
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                f()
+            host_us.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        K = [c.shape[0] for c, _, _ in blocks]
+        W = [c[0].numel() for c, _, _ in blocks]
+        esize = torch.empty((), dtype=dt).element_size()
+        nbytes = sum((k + num) * w * esize + 4 * (k + m.nseg + 1)
+                     for k, w, (_, m, num) in zip(K, W, blocks))
+        flops = sum(k * w for k, w in zip(K, W))
+        bound = max((nbytes / (gbs * 1e6), "bytes"),
+                    (flops / common.PEAK_FLOPS[dt] * 1e3, "operations"))
+        rows.append(dict(kernel="segment_sum", problem="ra10k apply_Q",
+                         dtype=dts, max_abs_err=err, ms=ms[0],
+                         three_launches_ms=ms[1], plain_ms=ms[2],
+                         library_ms=ms[3], bound_ms=bound[0],
+                         bound_by=bound[1], device_ms=dev_ms,
+                         host_us=host_us))
+        phase(f"[kernel] segment_sum ra10k r=3 apply_Q's three blocks "
+              f"{dts}: K={K} w={W} rows={list(nums)} max_abs_err={err:.3e} "
+              f"(rel {err / scale:.2e}); per apply_Q (events, "
+              f"{common.LAUNCHES} back to back, median of 3 turns): one "
+              f"launch {ms[0]:.4f} ms, three launches {ms[1]:.4f}, plain "
+              f"{ms[2]:.4f}, three index_add_ {ms[3]:.4f}; device ms "
+              f"(profiler) one launch {dev_ms[0]:.5f}, three launches "
+              f"{dev_ms[1]:.5f}, plain {dev_ms[2]:.5f}, three index_add_ "
+              f"{dev_ms[3]:.5f}; wrapper host us per call (issue, 1,000 "
+              f"calls) one launch {host_us[0]:.1f}, three launches "
+              f"{host_us[1]:.1f}; bound_ms={bound[0]:.5f} ({bound[1]}, "
+              f"{nbytes / 1e6:.3f} MB)")
     return rows
+
+
+def spmm_repeats(torch, path10k):
+    """Kernels 2 and 3 on grid10k's paired build, two products each at
+    r_pad 8 and 16 in f32 and f64, and two runs of a 100-iteration
+    flat-backend tCG (rtr.FLAT_BACKEND, through kernel 3) on its f32
+    tiles: {check: bitwise equal}.  The tCG takes the Hessian without its
+    Weingarten term (a zero Euclidean gradient in its setup), positive
+    semidefinite on the tangent space, so it runs all its iterations."""
+    from dcora_tpu_torch.core import rtr, spmm, tiled
+    from dcora_tpu_torch.core.graph import LocalGraph
+    from dcora_tpu_torch.io import read_g2o_file
+    from dcora_tpu_torch.tools.spmm_bench import tile_blocks
+
+    g = LocalGraph(0, 5, 3)
+    g.set_measurements(read_g2o_file(path10k).pose_pose_measurements)
+    P = g.problem_data(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    checks = {}
+    for dtype in (torch.float32, torch.float64):
+        dts = str(dtype).split(".")[-1]
+        TP = tiled.build_tiled(P, g.dims, dtype=dtype, pack="paired")
+        tb = tile_blocks(TP.Q)
+        for r_pad in (8, 16):
+            X = torch.randn((r_pad, TP.meta.kpad), generator=gen,
+                            dtype=dtype, device="cuda")
+            for name, fn, blocks in (("spmm_tile", spmm.spmm_symmetric, tb),
+                                     ("spmm_paired", spmm.spmm_paired,
+                                      TP.Q.pairs)):
+                checks[f"{name} grid10k {dts} r_pad {r_pad}"] = \
+                    torch.equal(fn(blocks, X), fn(blocks, X))
+        if dtype == torch.float32:
+            Xf = tiled.retract_flat(TP.meta, torch.zeros_like(X[:8]),
+                                    X[:8].clone())
+            egrad = tiled.egrad_flat(TP, Xf)
+            grad = rtr.FLAT_BACKEND.tangent(TP, Xf, egrad)
+            radius = torch.tensor(1e8, dtype=torch.float64, device="cuda")
+            before = spmm.spmm_paired.launches
+            flat = torch.zeros_like(egrad)
+            runs = [rtr.truncated_cg(TP, Xf, grad, flat, None, radius, 100,
+                                     1e-12, 1.0, be=rtr.FLAT_BACKEND)
+                    for _ in range(2)]
+            require(spmm.spmm_paired.launches > before
+                    and int(runs[0].inner_iters) == 100,
+                    f"the flat tCG ran {int(runs[0].inner_iters)} of 100 "
+                    f"iterations through kernel 3")
+            checks[f"flat tCG grid10k paired f32 "
+                   f"{int(runs[0].inner_iters)} iterations"] = \
+                int(runs[0].inner_iters) == int(runs[1].inner_iters) \
+                and torch.equal(runs[0].eta, runs[1].eta) \
+                and torch.equal(runs[0].Heta, runs[1].Heta)
+    return checks
 
 
 def raslam_phase(torch, name, path, ref, r_max):
@@ -1962,7 +2057,7 @@ def main() -> int:
         try:
             spmm.reset_launches()
             walls = {name: slice_phase(torch, name, paths[name],
-                                       refs[name])
+                                       refs[name])[0]
                      for name in ("smallGrid3D", "grid10k")}
             counts = spmm.launch_counts()
         finally:
@@ -2061,9 +2156,9 @@ def main() -> int:
     entries = []
     for name, meta in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        if name == "segment_sum":  # the rotations' sum at ra10k rank 3
+        if name == "segment_sum":  # one apply_Q's sums at ra10k rank 3
             main_row = next(r for r in mine if r["dtype"] == "float64"
-                            and r["problem"] == "ra10k rot")
+                            and r["problem"] == "ra10k apply_Q")
         else:
             main_row = next(r for r in mine
                             if r["dtype"] == main_dtype[name]

@@ -223,6 +223,10 @@ class Agent:
         if self.params.acceleration:
             self.initialize_acceleration()
 
+    def set_X_matrix(self, M: np.ndarray):
+        """Set from a reference-style SE interleaved matrix [r, (d+1)n]."""
+        self.set_X(lifted.from_se_matrix(torch.as_tensor(M), self.d))
+
     def get_X(self) -> RAState:
         return self.X
 

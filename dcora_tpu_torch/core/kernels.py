@@ -125,14 +125,14 @@ _SOURCES = {
     "spmm_sym": ({s: [_P] * 5 + [_I, _I, _P]
                   for s in ("dcora_spmm_sym_f32", "dcora_spmm_sym_f64")},
                  ["blocks.cuh"], _BLOCK_DEF),
-    "spmm_tile": ({s: [_P] * 7 + [_I] * 3 + [_P]
+    "spmm_tile": ({s: [_P] * 6 + [_I] * 3 + [_P]
                    for s in ("dcora_spmm_tile_f32", "dcora_spmm_tile_f64")},
                   ["blocks.cuh"], _BLOCK_DEF),
     "spmm_grouped": ({s: [_P] * 6 + [_I] * 3 + [_P]
                       for s in ("dcora_spmm_grouped_f32",
                                 "dcora_spmm_grouped_f64")},
                      ["blocks.cuh"], _BLOCK_DEF),
-    "segment_sum": ({s: [_P] * 4 + [_I] * 5 + [_P]
+    "segment_sum": ({s: [_P] * 2
                      for s in ("dcora_segment_sum_f32",
                                "dcora_segment_sum_f64")}, [], []),
 }

@@ -117,6 +117,24 @@ def from_flat(M: torch.Tensor, dims: ProblemDims) -> RAState:
                    trn=trn.contiguous())
 
 
+def to_se_matrix(X: RAState) -> torch.Tensor:
+    """RAState -> reference SE interleaved layout [r, (d+1)n], poses only."""
+    # [n, r, d+1] -> [r, n*(d+1)]
+    blocks = torch.cat([X.rot, X.trn[:X.n, :, None]], dim=2)
+    return blocks.permute(1, 0, 2).reshape(X.r, -1)
+
+
+def from_se_matrix(M, d: int) -> RAState:
+    """Reference SE interleaved layout [r, (d+1)n] -> RAState (l=b=0)."""
+    M = torch.as_tensor(M)
+    r = M.shape[0]
+    n = M.shape[1] // (d + 1)
+    blocks = M.reshape(r, n, d + 1).permute(1, 0, 2)  # [n, r, d+1]
+    return RAState(rot=blocks[:, :, :d].contiguous(),
+                   sph=torch.zeros((0, r), dtype=M.dtype, device=M.device),
+                   trn=blocks[:, :, d].contiguous())
+
+
 def from_pose_array(T: np.ndarray, l: int = 0, b: int = 0,  # noqa: E741
                     landmarks: Optional[np.ndarray] = None,
                     spheres: Optional[np.ndarray] = None,

@@ -5,7 +5,7 @@ f(X) = 0.5 <Q, X^T X> + <X, G>  (reference: QuadraticProblem.h:30-40,
 QuadraticProblem.cpp:38-84) without forming a sparse matrix: Q is held as
 its measurement SoA and applied by gather -> batched einsum -> segment sum
 (``core/segment.py``: on the card the deterministic kernel
-``csrc/segment_sum.cu``, one launch per output block).
+``csrc/segment_sum.cu``, one launch for the three output blocks).
 
 Closed-form per-edge blocks of Q (RA ordering; w = weight, kw = w*kappa,
 tw = w*tau, om = w*precision), applied to the state with the residual
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from dcora_tpu_torch.core.lifted import RAState
-from dcora_tpu_torch.core.segment import SegmentMap, build_map, segment_sum
+from dcora_tpu_torch.core.segment import SegmentMap, build_map, segment_sums
 
 
 class Segments(NamedTuple):
@@ -201,17 +201,18 @@ def apply_Q(P: ProblemData, X: RAState) -> RAState:
     """W = X Q arranged in the same block layout as X (Q is symmetric).
 
     Replaces EucHessianEta / EucGrad SpMV (QuadraticProblem.cpp:53-68).
-    Each output block is one segment sum over P.seg, which P must carry
-    (raises otherwise).
+    The three output blocks are segment sums over P.seg, which P must
+    carry (raises otherwise), taken together (one kernel launch on the
+    card).
     """
     seg = P.seg
     if seg is None:
         raise ValueError("apply_Q: the ProblemData has no segment maps "
                          "(problem.with_segments)")
     c_rot, c_trn, c_sph = edge_contributions(P, X)
-    out_rot = segment_sum(c_rot, seg.rot, X.rot.shape[0])
-    out_trn = segment_sum(c_trn, seg.trn, X.trn.shape[0])
-    out_sph = segment_sum(c_sph, seg.sph, X.sph.shape[0])
+    out_rot, out_trn, out_sph = segment_sums((
+        (c_rot, seg.rot, X.rot.shape[0]), (c_trn, seg.trn, X.trn.shape[0]),
+        (c_sph, seg.sph, X.sph.shape[0])))
 
     if P.prior_kdiag is not None:
         n_loc = P.prior_kdiag.shape[0]

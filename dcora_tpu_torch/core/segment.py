@@ -16,19 +16,24 @@ no atomics.  The contributions come in up to three parts (the edge kinds);
 each part is summed from zero and the parts' sums are added in order, as
 the port summed them before, one ``index_add_`` per part.
 
-:func:`segment_sum` launches the kernel on a CUDA tensor, or raises; on a
-CPU tensor it runs :func:`segment_sum_plain`, one ``index_add_`` per part
+:func:`segment_sums` sums up to three blocks, each its own (contrib, map,
+rows), in one launch (``problem.apply_Q``'s rotations, translations and
+spheres); :func:`segment_sum` is the one-block call.  On CUDA tensors they
+launch the kernel or raise; on CPU tensors they run
+:func:`segment_sum_plain` per block, one ``index_add_`` per part
 (sequential in position on the CPU), whose order the kernel follows on
-every row, so the two give the same bits.  :func:`build_map` checks the
-map once (non-negative indices, int32 positions) and places ``perm`` and
-``ptr`` on the device as contiguous int32; the wrapper checks per call only
-what a launch needs to stay inside its buffers.
+every row, so the two give the same bits, and a block gives the same bits
+summed alone or beside others.  :func:`build_map` checks the map once
+(non-negative indices, int32 positions) and places ``perm`` and ``ptr`` on
+the device as contiguous int32; the wrapper checks per call only what a
+launch needs to stay inside its buffers.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +41,10 @@ import torch
 from dcora_tpu_torch.core import kernels
 
 _FLOATS = (torch.float32, torch.float64)
+MAX_BLOCKS = 3
+# csrc/segment_sum.cu's Launch: per block (contrib, perm, ptr, out, begin,
+# num, nseg, w, part1, part2), then the total, all int64
+_LAUNCH = ctypes.c_int64 * (10 * MAX_BLOCKS + 1)
 
 
 class SegmentMap(NamedTuple):
@@ -125,37 +134,62 @@ def segment_sum_plain(contrib: torch.Tensor, m: SegmentMap,
     return out[:num]
 
 
+def segment_sums(blocks: Sequence[Tuple[torch.Tensor, SegmentMap, int]]
+                 ) -> List[torch.Tensor]:
+    """[out_i] for up to three blocks (contrib_i, map_i, num_i), out_i as
+    segment_sum(contrib_i, map_i, num_i) would give it, in one launch of
+    csrc/segment_sum.cu on CUDA tensors (every contrib on one device, one
+    dtype, the maps built on it) or raising; on CPU tensors
+    segment_sum_plain per block."""
+    if not 1 <= len(blocks) <= MAX_BLOCKS:
+        raise ValueError(f"segment_sums: 1 to {MAX_BLOCKS} blocks, got "
+                         f"{len(blocks)}")
+    first = blocks[0][0]
+    if not first.is_cuda:
+        for c, m, num in blocks:
+            if c.device.type != "cpu":
+                raise ValueError(f"segment_sum: unsupported device "
+                                 f"{c.device}")
+        return [segment_sum_plain(c, m, num) for c, m, num in blocks]
+    dtype, device = first.dtype, first.device
+    desc, outs, srcs, begin = [], [], [], 0
+    for c, m, num in blocks:
+        _check(c, m, num)
+        if c.dtype != dtype or c.device != device:
+            raise ValueError(f"segment_sums: blocks on {c.device} {c.dtype} "
+                             f"and {device} {dtype}")
+        if m.perm.device != device:
+            raise ValueError("segment_sum: the map is not on the card "
+                             "(build_map(..., device))")
+        src = c if c.is_contiguous() else c.contiguous()
+        srcs.append(src)  # alive until the launch has read its pointer
+        w = math.prod(c.shape[1:])
+        out = torch.empty((num,) + c.shape[1:], dtype=dtype, device=device)
+        outs.append(out)
+        desc += (src.data_ptr(), m.perm.data_ptr(), m.ptr.data_ptr(),
+                 out.data_ptr(), begin, num, m.nseg, w, *m.bounds)
+        begin += num * w
+    if begin == 0:
+        return outs
+    # an absent block: no pointers, begins at the total, so no thread
+    desc += (0, 0, 0, 0, begin, 0, 0, 1, 0, 0) * (MAX_BLOCKS - len(blocks))
+    launch = _LAUNCH(*desc, begin)  # alive until the call has read it
+    fn = kernels.entry("segment_sum", dtype)
+    if device.index == torch.cuda.current_device():
+        err = fn(ctypes.addressof(launch), kernels.stream(first))
+    else:
+        with torch.cuda.device(device):
+            err = fn(ctypes.addressof(launch), kernels.stream(first))
+    kernels.check_launch("segment_sum", err)
+    kernels.count_launch(segment_sum)
+    return outs
+
+
 @kernels.counted
 def segment_sum(contrib: torch.Tensor, m: SegmentMap,
                 num: int) -> torch.Tensor:
     """out[row] = the sum of contrib[k] over the k that m maps to row, for
     rows [0, num); contrib is [K, ...] in f32 or f64.  A CUDA contrib
     launches csrc/segment_sum.cu (the map built on its device) or raises; a
-    CPU contrib runs segment_sum_plain."""
-    if not contrib.is_cuda:
-        if contrib.device.type != "cpu":
-            raise ValueError(f"segment_sum: unsupported device "
-                             f"{contrib.device}")
-        return segment_sum_plain(contrib, m, num)
-    _check(contrib, m, num)
-    if not m.perm.is_cuda:
-        raise ValueError("segment_sum: the map is not on the card "
-                         "(build_map(..., device))")
-    K, shape = contrib.shape[0], contrib.shape[1:]
-    w = math.prod(shape)
-    out = torch.empty((num,) + shape, dtype=contrib.dtype,
-                      device=contrib.device)
-    if num * w == 0:
-        return out
-    src = contrib.reshape(K, w).contiguous()
-    fn = kernels.entry("segment_sum", src.dtype)
-    args = (src.data_ptr(), m.perm.data_ptr(), m.ptr.data_ptr(),
-            out.data_ptr(), num, m.nseg, w, m.bounds[0], m.bounds[1])
-    if src.get_device() == torch.cuda.current_device():
-        err = fn(*args, kernels.stream(src))
-    else:
-        with torch.cuda.device(src.device):
-            err = fn(*args, kernels.stream(src))
-    kernels.check_launch("segment_sum", err)
-    kernels.count_launch(segment_sum)
-    return out
+    CPU contrib runs segment_sum_plain.  segment_sums with one block."""
+    return segment_sums(((contrib, m, num),))[0]

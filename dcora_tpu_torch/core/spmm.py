@@ -16,15 +16,17 @@ B x B sub-blocks (B = :data:`BLOCK`).  One kernel per TPU kernel:
   * :func:`spmm_symmetric` -- ``csrc/spmm_tile.cu``, replacing
     ``pallas_spmm.py:_spmm_kernel``: the per-tile list compacted to each
     tile's non-empty sub-blocks (:func:`compact_tiles`, :class:`TileBlocks`),
-    each block read once and applied both ways, the tile's sums added into
-    W with atomics.
+    each block stored once and applied both ways, owner-computes over
+    output strips from a CSR of (block, side) items in tile order.
+    Deterministic.
   * :func:`spmm_paired` -- ``csrc/spmm_grouped.cu``, replacing
     ``pallas_spmm.py:_paired_kernel`` and the wide-layout
     ``_grouped_kernel``: the row-group packs of ``spmm_pack`` (one or two
     RCM tile-rows per group, forward K-fused over the group's rows,
     transposed masked on c == r_1) compacted to their non-empty sub-blocks
     (``spmm_pack.compact_buckets``, :class:`PairBlocks`), every bucket in
-    one launch, atomics.
+    one launch, owner-computes over output strips from a CSR of (block,
+    side) items, each block stored once.  Deterministic.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain PyTorch version of the same layout (index_select -> bmm
@@ -136,6 +138,14 @@ def _from_strips(Ws: torch.Tensor) -> torch.Tensor:
     return Ws.transpose(0, 1).reshape(r_pad, nstrip * B)
 
 
+def csr_offsets(keys: np.ndarray, n: int) -> np.ndarray:
+    """The CSR offsets [n + 1] (int64) of the non-negative int keys (< n):
+    row s's entries, once sorted by key, are offsets[s]:offsets[s + 1]."""
+    ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(keys, minlength=n), out=ptr[1:])
+    return ptr
+
+
 # --------------------------------------------------------------------------
 # Kernel 1: owner-computes over output strips (csrc/spmm_sym.cu)
 # --------------------------------------------------------------------------
@@ -182,9 +192,7 @@ def build_output_csr(rows, cols, tiles, nt: int) -> StripCSR:
     src = np.concatenate([src_f, out_f[off]])
     vals = np.concatenate([blk.transpose(0, 2, 1), blk[off]])
     order = np.lexsort((src, out))
-    nstrip = nt * TB
-    ptr = np.zeros(nstrip + 1, np.int64)
-    np.cumsum(np.bincount(out, minlength=nstrip), out=ptr[1:])
+    ptr = csr_offsets(out, nt * TB)
     return StripCSR(ptr.astype(np.int32), src[order].astype(np.int32),
                     np.ascontiguousarray(vals[order]))
 
@@ -262,7 +270,8 @@ def spmm_sym(strips: StripCSR, X: torch.Tensor) -> torch.Tensor:
 
 class TileBlocks(NamedTuple):
     """The upper-triangular per-tile list (rows <= cols) cut down to each
-    tile's non-empty B x B sub-blocks, in tile order.
+    tile's non-empty B x B sub-blocks, in tile order, with the output CSR
+    the kernel walks.
 
     Tile t sits at tile row tile_row[t] and tile column tile_col[t] (it is
     a diagonal tile when the two are equal: its transposed products are
@@ -270,15 +279,43 @@ class TileBlocks(NamedTuple):
     sub-block (a, b) of its T x T tile A, stored as ent_blk[e] = a * (T/B)
     + b, with vals[e][kk][jj] = A[aB + kk, bB + jj]; a tile's entries are
     sorted by b, then a.  min_kpad is one past the last scalar column any
-    entry reaches: X needs at least that many."""
+    entry reaches: X needs at least that many.
 
-    tile_ptr: torch.Tensor  # i32[ntile + 1]
-    tile_row: torch.Tensor  # i32[ntile]
-    tile_col: torch.Tensor  # i32[ntile]
-    ent_blk: torch.Tensor   # i32[ne]
-    vals: torch.Tensor      # [ne, B, B]
+    The output CSR, as PairBlocks': output strip s (B columns from sB)
+    sums the items out_ptr[s]:out_ptr[s+1].  Item i applies block
+    out_ent[i] to the strip of X at scalar column out_src[i] & ~1: forward
+    (bit 0 clear: the entries whose sub-column cT + bB is strip s, in entry
+    order, so by tile, then a; X at rT + aB) before transposed (bit 0 set:
+    the entries of off-diagonal tiles whose sub-row rT + aB is strip s, by
+    tile, then b; X at cT + bB).  Strips at or past len(out_ptr) - 1 get
+    no item."""
+
+    tile_ptr: torch.Tensor   # i32[ntile + 1]
+    tile_row: torch.Tensor   # i32[ntile]
+    tile_col: torch.Tensor   # i32[ntile]
+    ent_blk: torch.Tensor    # i32[ne]
+    vals: torch.Tensor       # [ne, B, B]
     T: int
     min_kpad: int
+    out_ptr: torch.Tensor    # i32[min_kpad / B + 1]
+    out_ent: torch.Tensor    # i32[nitem]
+    out_src: torch.Tensor    # i32[nitem]
+
+
+def item_csr(fwd_strip, fwd_src, trn_ent, trn_strip, trn_src, nstrip):
+    """The output CSR (out_ptr, out_ent, out_src; int64) of kernels 2 and
+    3: every entry e as a forward item into strip fwd_strip[e] from the
+    scalar column fwd_src[e] of X, and the entries trn_ent as transposed
+    items into trn_strip from trn_src (bit 0 set); strip by strip, forward
+    before transposed, each side in entry order."""
+    ne = len(fwd_strip)
+    strip = np.concatenate([fwd_strip, trn_strip])
+    side = np.concatenate([np.zeros(ne, np.int64),
+                           np.ones(len(trn_ent), np.int64)])
+    ent = np.concatenate([np.arange(ne), trn_ent])
+    src = np.concatenate([fwd_src, np.asarray(trn_src) | 1])
+    items = np.lexsort((ent, side, strip))
+    return csr_offsets(strip, nstrip), ent[items], src[items]
 
 
 def compact_tiles(rows, cols, tiles) -> TileBlocks:
@@ -301,15 +338,21 @@ def compact_tiles(rows, cols, tiles) -> TileBlocks:
     t, a, b = np.nonzero(nonempty_blocks(tiles))
     order = np.lexsort((a, b, t))
     t, a, b = t[order], a[order], b[order]
-    keep, count = np.unique(t, return_counts=True)
+    keep, tix, count = np.unique(t, return_inverse=True, return_counts=True)
     tile_ptr = np.zeros(len(keep) + 1, np.int64)
     np.cumsum(count, out=tile_ptr[1:])
-    reach = np.maximum(rows[t] * T + a * B, cols[t] * T + b * B)
+    r, c = rows[keep][tix], cols[keep][tix]
+    src, dst = r * T + a * B, c * T + b * B   # scalar columns of X and W
+    min_kpad = int(np.maximum(src, dst).max()) + B if len(t) else 0
+    off = np.flatnonzero(r != c)
+    out = item_csr(dst // B, src, off, src[off] // B, dst[off],
+                   min_kpad // B)
+    i32 = np.int32
     return TileBlocks(
-        tile_ptr.astype(np.int32), rows[keep].astype(np.int32),
-        cols[keep].astype(np.int32), (a * TB + b).astype(np.int32),
+        tile_ptr.astype(i32), rows[keep].astype(i32), cols[keep].astype(i32),
+        (a * TB + b).astype(i32),
         np.ascontiguousarray(tiles.reshape(m, TB, B, TB, B)[t, a, :, b, :]),
-        T, int(reach.max()) + B if len(t) else 0)
+        T, min_kpad, *(x.astype(i32) for x in out))
 
 
 def spmm_symmetric_plain(blocks: TileBlocks, X: torch.Tensor
@@ -318,7 +361,7 @@ def spmm_symmetric_plain(blocks: TileBlocks, X: torch.Tensor
     tile row's and the tile column's strips of X -> bmm with the block
     (forward) and, off the diagonal, its transpose -> index_add_ into the
     tile column's and the tile row's strips of W."""
-    tile_ptr, tile_row, tile_col, ent_blk, vals, T, _ = blocks
+    tile_ptr, tile_row, tile_col, ent_blk, vals, T = blocks[:6]
     TB = T // BLOCK
     tile = torch.repeat_interleave(
         torch.arange(tile_row.shape[0], device=X.device),
@@ -339,23 +382,31 @@ def spmm_symmetric_plain(blocks: TileBlocks, X: torch.Tensor
 @kernels.counted
 def spmm_symmetric(blocks: TileBlocks, X: torch.Tensor) -> torch.Tensor:
     """W = X Q from the per-tile list's non-empty sub-blocks (TileBlocks,
-    compact_tiles), each block read once.
+    compact_tiles), each block stored once.
 
     vals [ne, B, B] (B = BLOCK) and X [r_pad, kpad] share f32 or f64, any
     r_pad >= 1, kpad >= blocks.min_kpad.  A CUDA X launches
-    csrc/spmm_tile.cu (contiguous int32 indices, T = 128) or raises; a CPU X
-    runs spmm_symmetric_plain.
+    csrc/spmm_tile.cu (contiguous int32 indices, T = 128; it walks the
+    output CSR, writing every strip of W once) or raises; a CPU X runs
+    spmm_symmetric_plain.
     """
-    tile_ptr, tile_row, tile_col, ent_blk, vals, T, min_kpad = blocks
+    (tile_ptr, tile_row, tile_col, ent_blk, vals, T, min_kpad, out_ptr,
+     out_ent, out_src) = blocks
     _check_blocks("spmm_symmetric", vals)
     _check_x("spmm_symmetric", X, vals, BLOCK)
     ntile = tile_row.shape[0]
     if tile_ptr.shape != (ntile + 1,) or tile_col.shape != (ntile,) or \
-            ent_blk.shape != (vals.shape[0],):
+            ent_blk.shape != (vals.shape[0],) or \
+            out_ptr.shape != (min_kpad // BLOCK + 1,) or \
+            out_src.shape != out_ent.shape:
         raise ValueError(f"spmm_symmetric: tile_ptr {tuple(tile_ptr.shape)}, "
-                         f"tile_col {tuple(tile_col.shape)} and ent_blk "
-                         f"{tuple(ent_blk.shape)} do not index {ntile} tiles "
-                         f"and {vals.shape[0]} blocks")
+                         f"tile_col {tuple(tile_col.shape)}, ent_blk "
+                         f"{tuple(ent_blk.shape)}, out_ptr "
+                         f"{tuple(out_ptr.shape)} and out_src "
+                         f"{tuple(out_src.shape)} do not index {ntile} "
+                         f"tiles, {vals.shape[0]} blocks, "
+                         f"{min_kpad // BLOCK} strips and "
+                         f"{out_ent.shape[0]} items")
     if X.shape[1] < min_kpad:
         raise ValueError(f"spmm_symmetric: the tiles reach column "
                          f"{min_kpad}, X has {X.shape[1]}")
@@ -365,18 +416,18 @@ def spmm_symmetric(blocks: TileBlocks, X: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"spmm_symmetric: the kernel takes "
                          f"{T_TILE}x{T_TILE} tiles, got {T}x{T}")
     _check_kernel("spmm_symmetric", X, vals, tile_ptr=tile_ptr,
-                  tile_row=tile_row, tile_col=tile_col, ent_blk=ent_blk)
+                  tile_row=tile_row, tile_col=tile_col, ent_blk=ent_blk,
+                  out_ptr=out_ptr, out_ent=out_ent, out_src=out_src)
     r_pad, kpad = X.shape
     fn = kernels.entry("spmm_tile", X.dtype)
     W = torch.empty_like(X)
     with torch.cuda.device(X.device):
         kernels.check_launch("spmm_symmetric", fn(
-            tile_ptr.data_ptr(), tile_row.data_ptr(), tile_col.data_ptr(),
-            ent_blk.data_ptr(), vals.data_ptr(), X.data_ptr(), W.data_ptr(),
-            ntile, kpad, r_pad, kernels.stream(X)))
+            out_ptr.data_ptr(), out_ent.data_ptr(), out_src.data_ptr(),
+            vals.data_ptr(), X.data_ptr(), W.data_ptr(),
+            out_ptr.shape[0] - 1, kpad, r_pad, kernels.stream(X)))
     kernels.count_launch(spmm_symmetric)
     return W
-
 
 
 # --------------------------------------------------------------------------
@@ -387,7 +438,7 @@ def spmm_symmetric(blocks: TileBlocks, X: torch.Tensor) -> torch.Tensor:
 class PairBlocks(NamedTuple):
     """Row-group packs (spmm_pack.build_row_pairs_bucketed and the other
     packers) compacted to their non-empty B x B sub-blocks by
-    spmm_pack.compact_buckets.
+    spmm_pack.compact_buckets, with the output CSR the kernel walks.
 
     A run r is one slot's sub-column: the B output columns starting at
     ``run_col[r] & ~1``; bit 0 of run_col is set when the slot is masked
@@ -396,13 +447,26 @@ class PairBlocks(NamedTuple):
     of either row of the group that feed it: entry e sits at the scalar
     column ent_col[e] of its sub-row, with vals[e][kk][jj] =
     A[aB + kk, bB + jj] of its sub-tile A.  min_kpad is one past the last
-    scalar column any run or entry reaches: X needs at least that many."""
+    scalar column any run or entry reaches: X needs at least that many.
+
+    The output CSR: output strip s (B columns from sB) sums the items
+    out_ptr[s]:out_ptr[s+1].  Item i applies block out_ent[i] to the strip
+    of X at scalar column out_src[i] & ~1: forward (bit 0 clear: the entries
+    of the runs whose output strip is s, run by run, each run's entries in
+    its (h, a) order, X at the entry's sub-row) before transposed (bit 0
+    set: the entries of unmasked runs whose sub-row strip is s, in (run,
+    entry) order, X at the run's columns).  Each block is stored once and
+    may be named by a forward and a transposed item.  Strips at or past
+    len(out_ptr) - 1 get no item."""
 
     run_ptr: torch.Tensor   # i32[nrun + 1]
     run_col: torch.Tensor   # i32[nrun]
     ent_col: torch.Tensor   # i32[ne]
     vals: torch.Tensor      # [ne, B, B]
     min_kpad: int
+    out_ptr: torch.Tensor   # i32[min_kpad / B + 1]
+    out_ent: torch.Tensor   # i32[nitem]
+    out_src: torch.Tensor   # i32[nitem]
 
 
 def spmm_paired_plain(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
@@ -410,7 +474,7 @@ def spmm_paired_plain(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
     sub-row's and the run's strips of X -> bmm with the block (forward) and
     its transpose (unless masked) -> index_add_ into the run's and the
     sub-row's strips of W."""
-    run_ptr, run_col, ent_col, vals, _ = blocks
+    run_ptr, run_col, ent_col, vals = blocks[:4]
     B = BLOCK
     Xs = _strips_of(X)
     run = torch.repeat_interleave(
@@ -434,32 +498,39 @@ def spmm_paired(blocks: PairBlocks, X: torch.Tensor) -> torch.Tensor:
 
     vals [ne, B, B] (B = BLOCK) and X [r_pad, kpad] share f32 or f64, any
     r_pad >= 1, kpad >= blocks.min_kpad.  A CUDA X launches
-    csrc/spmm_grouped.cu (contiguous int32 indices) or raises; a CPU X runs
+    csrc/spmm_grouped.cu (contiguous int32 indices; it walks the output
+    CSR, writing every strip of W once) or raises; a CPU X runs
     spmm_paired_plain.
     """
-    run_ptr, run_col, ent_col, vals, min_kpad = blocks
+    (run_ptr, run_col, ent_col, vals, min_kpad, out_ptr, out_ent,
+     out_src) = blocks
     _check_blocks("spmm_paired", vals)
     _check_x("spmm_paired", X, vals, BLOCK)
     nrun = run_col.shape[0]
-    if run_ptr.shape != (nrun + 1,) or ent_col.shape != (vals.shape[0],):
-        raise ValueError(f"spmm_paired: run_ptr {tuple(run_ptr.shape)} and "
-                         f"ent_col {tuple(ent_col.shape)} do not index "
-                         f"{nrun} runs and {vals.shape[0]} blocks")
+    if run_ptr.shape != (nrun + 1,) or ent_col.shape != (vals.shape[0],) \
+            or out_ptr.shape != (min_kpad // BLOCK + 1,) or \
+            out_src.shape != out_ent.shape:
+        raise ValueError(f"spmm_paired: run_ptr {tuple(run_ptr.shape)}, "
+                         f"ent_col {tuple(ent_col.shape)}, out_ptr "
+                         f"{tuple(out_ptr.shape)} and out_src "
+                         f"{tuple(out_src.shape)} do not index {nrun} runs, "
+                         f"{vals.shape[0]} blocks, {min_kpad // BLOCK} "
+                         f"strips and {out_ent.shape[0]} items")
     if X.shape[1] < min_kpad:
         raise ValueError(f"spmm_paired: the packs reach column {min_kpad}, "
                          f"X has {X.shape[1]}")
     if X.device.type == "cpu":
         return spmm_paired_plain(blocks, X)
     _check_kernel("spmm_paired", X, vals, run_ptr=run_ptr, run_col=run_col,
-                  ent_col=ent_col)
+                  ent_col=ent_col, out_ptr=out_ptr, out_ent=out_ent,
+                  out_src=out_src)
     r_pad, kpad = X.shape
     fn = kernels.entry("spmm_grouped", X.dtype)
     W = torch.empty_like(X)
     with torch.cuda.device(X.device):
         kernels.check_launch("spmm_paired", fn(
-            run_ptr.data_ptr(), run_col.data_ptr(), ent_col.data_ptr(),
-            vals.data_ptr(), X.data_ptr(), W.data_ptr(), nrun, kpad, r_pad,
-            kernels.stream(X)))
+            out_ptr.data_ptr(), out_ent.data_ptr(), out_src.data_ptr(),
+            vals.data_ptr(), X.data_ptr(), W.data_ptr(),
+            out_ptr.shape[0] - 1, kpad, r_pad, kernels.stream(X)))
     kernels.count_launch(spmm_paired)
     return W
-

@@ -31,7 +31,12 @@ import itertools
 
 import numpy as np
 
-from dcora_tpu_torch.core.spmm import BLOCK, PairBlocks, nonempty_blocks
+from dcora_tpu_torch.core.spmm import (
+    BLOCK,
+    PairBlocks,
+    item_csr,
+    nonempty_blocks,
+)
 
 GROUP = 8  # tiles per row-group of the fixed-width layout
 
@@ -293,6 +298,12 @@ def compact_buckets(buckets) -> PairBlocks:
     (h, a) inside it.  A run is masked (bit 0 of run_col) when c == r_1:
     the r_1 diagonal tile or a pad slot.  Runs are in bucket, slot and b
     order.  min_kpad is one past the last column a run or an entry reaches.
+
+    The output CSR over strips of B columns (out_ptr, out_ent, out_src)
+    lists, for strip s, first the entries of the runs whose output strip is
+    s (forward, in run and entry order), then the entries of unmasked runs
+    whose sub-row strip is s (transposed, in run and entry order, bit 0 of
+    out_src set).
     """
     B = BLOCK
     slots, keys, cols, ecols, vals = [], [], [], [], []
@@ -329,8 +340,13 @@ def compact_buckets(buckets) -> PairBlocks:
     run_ptr = np.append(np.flatnonzero(start), len(slot))
     ecol = np.concatenate(ecols)[order]
     reach = max(int(np.max(col, initial=0)) & ~1,
-                int(np.max(ecol, initial=0)))
-    return PairBlocks(run_ptr.astype(np.int32),
-                      col[start].astype(np.int32), ecol.astype(np.int32),
+                int(np.max(ecol, initial=0))) + B
+    ccol = col & ~1
+    trn = np.flatnonzero((col & 1) == 0)
+    out = item_csr(ccol // B, ecol, trn, ecol[trn] // B, ccol[trn],
+                   reach // B)
+    i32 = np.int32
+    return PairBlocks(run_ptr.astype(i32), col[start].astype(i32),
+                      ecol.astype(i32),
                       np.ascontiguousarray(np.concatenate(vals)[order]),
-                      reach + B)
+                      reach, *(x.astype(i32) for x in out))

@@ -9,6 +9,7 @@ go on without one (the tools never fall back to the CPU).
 
 from __future__ import annotations
 
+import hashlib
 import os
 import subprocess
 from typing import Callable, List, NamedTuple, Sequence, Tuple
@@ -102,6 +103,14 @@ def device_ms(fn: Callable, n: int = 20) -> float:
         if us > 0:
             return us / n * 1e-3
     raise RuntimeError("torch.profiler recorded no device time")
+
+
+def state_sha256(X) -> str:
+    """SHA-256 of a state's bytes (each tensor on the host, in order)."""
+    h = hashlib.sha256()
+    for x in X:
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def symmetric_csr(Q, kpad: int) -> Tuple[torch.Tensor, int]:

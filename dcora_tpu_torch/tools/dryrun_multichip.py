@@ -99,7 +99,7 @@ def worker(rank: int, world: int, url: str, device: str, data: str):
         graphs.append(g)
     pp = build_parallel_problem(graphs)
     X = lifted.pad_rank(lifted.from_pose_array(
-        chordal_initialization(ms, device="cpu"), device=dev), r)
+        chordal_initialization(ms, device=dev), device=dev), r)
     Xall = pack_states(pp, [
         RAState(rot=X.rot[s:e], sph=X.sph[:0], trn=X.trn[s:e])
         for s, e in (robot_slice(n, A, a) for a in range(A))], dev)

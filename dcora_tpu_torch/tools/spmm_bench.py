@@ -16,18 +16,21 @@ graph, spheres and landmarks in Q) and one random X, it times
   * kernel 1, ``spmm_sym`` (owner-computes over output strips of the
     non-empty B x B sub-blocks, B = ``spmm.BLOCK``);
   * kernel 2, ``spmm_symmetric`` (the per-tile list compacted to each
-    tile's non-empty sub-blocks, ``spmm.compact_tiles``, atomics);
+    tile's non-empty sub-blocks, ``spmm.compact_tiles``, owner-computes
+    over output strips);
   * kernel 3, ``spmm_paired`` (the row-group packs' non-empty sub-blocks,
-    one launch) on the paired pack and on the single-row bucketed pack.
+    one launch, owner-computes over output strips) on the paired pack and
+    on the single-row bucketed pack.
 
 It first reports what Q holds (``common.q_stats``: stored tiles and
 non-zeros, kernel 1's strips, sub-blocks and MB).  For each row it prints
 ms per product (CUDA events around back-to-back
 launches, median of 3 turns), the device ms per product (the kernels' own
-durations under torch.profiler, without the host's launch overhead), the MB
-of Q data the layout reads (values and indices), the error relative to
-max|W| of the plain result, and the product's bound (``common.spmm_bound_ms``
-at the card's data-sheet HBM rate).  Refuses to run without CUDA.
+durations under torch.profiler, without the host's launch overhead), the
+MB of Q data the row's kernel reads (values and the indices it walks), the
+error relative to max|W| of the plain result, and the product's bound
+(``common.spmm_bound_ms`` at the card's data-sheet HBM rate: Q's stored
+non-zeros, X and W).  Refuses to run without CUDA.
 """
 
 from __future__ import annotations
@@ -91,14 +94,16 @@ def layouts(TP: tiled.TiledProblem, X: torch.Tensor):
     out[f"spmm_sym (kernel 1, strips B={spmm.BLOCK})"] = (
         lambda: spmm.spmm_sym(Q.strips, X), _nbytes(*Q.strips))
     out[f"spmm_symmetric (kernel 2, tiles B={spmm.BLOCK})"] = (
-        lambda: spmm.spmm_symmetric(tb, X), _nbytes(*tb))
+        lambda: spmm.spmm_symmetric(tb, X), _nbytes(
+            tb.vals, tb.out_ptr, tb.out_ent, tb.out_src))
     for name, packer in (("paired", spmm_pack.build_row_pairs_bucketed),
                          ("bucketed R=1",
                           spmm_pack.build_row_groups_bucketed)):
         Pb = spmm.to_device(spmm_pack.compact_buckets(
             packer(trow, tcol, tiles_np, T=T)), dt, dev)
         out[f"{name} (kernel 3, B={spmm.BLOCK})"] = (
-            lambda Pb=Pb: spmm.spmm_paired(Pb, X), _nbytes(*Pb))
+            lambda Pb=Pb: spmm.spmm_paired(Pb, X), _nbytes(
+                Pb.vals, Pb.out_ptr, Pb.out_ent, Pb.out_src))
     return out
 
 

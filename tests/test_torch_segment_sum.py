@@ -13,7 +13,11 @@ port carries.
     problem, the fleet, a shard, the batched agents' problems, the JAX
     problem carried across) the maps equal a fresh with_segments, and GNC's
     weight change keeps them;
-  * DC2-PGO's per-robot sums and the graph-replay launch bookkeeping.
+  * DC2-PGO's per-robot sums and the graph-replay launch bookkeeping;
+  * segment_sums (up to three blocks, one launch on the card) on the CPU:
+    each block's output bitwise equal to its plain sum alone, in f32 and
+    f64, one to three blocks; more than three or none are refused;
+    apply_Q's three blocks through it give the per-block sums' bits.
 """
 
 import os
@@ -150,6 +154,35 @@ def test_map_layout():
         segment.segment_sum(torch.zeros((5, 2)), m, 3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nblocks", [1, 2, 3])
+def test_segment_sums_blocks_bitwise_per_block(nblocks, dtype):
+    """Blocks of other widths, rows and trailing shapes summed together:
+    each output is the per-block plain sum's bits (the kernel's grid walks
+    the blocks back to back, each row as it would alone)."""
+    blocks, want = [], []
+    for i, (w, shape) in enumerate(((9, (3, 3)), (3, (3,)), (27, (27,)))
+                                   [:nblocks]):
+        parts, contrib, num = _case(w, dtype, seed=10 + i)
+        m = segment.build_map([(p,) for p in parts])
+        c = contrib.reshape((contrib.shape[0],) + shape)
+        blocks.append((c, m, num - i))
+        want.append(segment.segment_sum_plain(c, m, num - i))
+    outs = segment.segment_sums(blocks)
+    assert len(outs) == nblocks
+    for out, ref, (c, _, num) in zip(outs, want, blocks):
+        assert out.shape == (num,) + c.shape[1:] and out.dtype == dtype
+        assert torch.equal(out, ref)
+
+
+def test_segment_sums_refuses_no_or_four_blocks():
+    parts, contrib, num = _case(3, torch.float64)
+    m = segment.build_map([(p,) for p in parts])
+    for blocks in ([], [(contrib, m, num)] * 4):
+        with pytest.raises(ValueError, match="1 to 3 blocks"):
+            segment.segment_sums(blocks)
+
+
 @pytest.fixture(scope="module")
 def sets(tmp_path_factory):
     """A generated grid (PGO) and a generated PyFG set (RA), each read and
@@ -189,6 +222,14 @@ def test_apply_Q_with_maps_matches_jax(sets, kind):
     ref = jprob.apply_Q(gj.problem_data(), jax_state(arrs))
     out = tprob.apply_Q(Pt, torch_state(arrs))
     assert_state_close(out, ref)
+    # the one call of segment_sums gives each block's own sum's bits (no
+    # prior term is added on these sets)
+    X = torch_state(arrs)
+    assert Pt.prior_kdiag is None and Pt.prior_tdiag is None
+    for got, c, m, num in zip(
+            (out.rot, out.trn, out.sph), tprob.edge_contributions(Pt, X),
+            Pt.seg, (X.rot.shape[0], X.trn.shape[0], X.sph.shape[0])):
+        assert torch.equal(got, segment.segment_sum_plain(c, m, num))
     with pytest.raises(ValueError, match="segment maps"):
         tprob.apply_Q(Pt._replace(seg=None), torch_state(arrs))
 

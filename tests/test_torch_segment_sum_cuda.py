@@ -7,10 +7,12 @@
     the CPU's bits.
   * Two calls bitwise equal; a captured CUDA graph replayed twice bitwise
     equal to the eager call, its launch counted once per replay.
-  * apply_Q raises on a CUDA ProblemData without maps, as on the CPU; the
-    edge path's tCG through rtr.TCGGraph counts three launches per
-    iteration on an RA problem (per replay, beside the capture's eager
-    warm-up), and two 200-iteration solves are bitwise equal.
+  * apply_Q raises on a CUDA ProblemData without maps, as on the CPU; its
+    one launch for the three blocks gives the bits of three one-block
+    launches and of the CPU; the edge path's tCG through rtr.TCGGraph
+    counts one launch per iteration on an RA problem (per replay, beside
+    the capture's eager warm-up), and two 200-iteration solves are bitwise
+    equal.
 
 Imports only torch, numpy and the port, so it runs where JAX is not
 installed; every test skips without a CUDA device.  On the card:
@@ -124,6 +126,34 @@ def test_apply_Q_needs_maps_on_the_card(ra):
         prob.apply_Q(P._replace(seg=None), X)
 
 
+def test_apply_Q_one_launch_equals_three_single_launches(ra):
+    """apply_Q's three blocks in one launch: bitwise the three blocks each
+    launched alone, and the CPU's sums of the same contributions."""
+    from dcora_tpu_torch.core import lifted, problem as prob
+
+    _, g = ra
+    P = g.problem_data(device="cuda")
+    arrs = [np.random.default_rng(i).standard_normal(a.shape)
+            for i, a in enumerate(lifted.zeros(g.dims, 3))]
+    X = lifted.RAState(*(torch.as_tensor(a, device="cuda") for a in arrs))
+    before = segment.segment_sum.launches
+    out = prob.apply_Q(P, X)
+    assert segment.segment_sum.launches == before + 1
+    nums = (X.rot.shape[0], X.trn.shape[0], X.sph.shape[0])
+    contribs = prob.edge_contributions(P, X)
+    alone = [segment.segment_sum(c, m, n)
+             for c, m, n in zip(contribs, P.seg, nums)]
+    assert segment.segment_sum.launches == before + 4
+    cpu = [segment.segment_sum_plain(c.cpu(), m, n) for c, m, n in
+           zip(contribs, g.problem_data(device="cpu").seg, nums)]
+    torch.cuda.synchronize()
+    assert P.prior_kdiag is None and P.prior_tdiag is None
+    for got, one, c in zip((out.rot, out.trn, out.sph), alone, cpu):
+        assert got.is_cuda and got.shape == one.shape
+        assert torch.equal(got, one)
+        assert torch.equal(got.cpu(), c)
+
+
 def test_tcg_graph_counts_per_replay_and_repeats(ra):
     from dcora_tpu_torch.core import rtr
     from dcora_tpu_torch.tools import common
@@ -137,9 +167,9 @@ def test_tcg_graph_counts_per_replay_and_repeats(ra):
         res = tcg.solve()
         runs.append((res, segment.segment_sum.launches - before))
     torch.cuda.synchronize()
-    # one apply_Q (three blocks: rotations, translations, spheres) per
-    # iteration, STEPS iterations per replay
-    assert graph.per_replay["segment_sum"] == 3 * rtr.TCGGraph.STEPS
+    # one apply_Q (three blocks: rotations, translations, spheres, in one
+    # launch) per iteration, STEPS iterations per replay
+    assert graph.per_replay["segment_sum"] == 1 * rtr.TCGGraph.STEPS
     (a, na), (b, nb) = runs
     assert int(a.inner_iters) == int(b.inner_iters) == 200
     # the first solve also runs the capture's eager warm-up (STEPS

@@ -18,7 +18,12 @@ B = ``spmm.BLOCK``.  Checked here:
   ascending source order; slot -> sub-blocks, forward K-fused over the
   group's rows, transposed unless c_j == r_1.  The walks reproduce the
   dense product, the kernels' tables list exactly the walks' work, and the
-  wrong mask (also c_j == r_2) does not reproduce it.
+  wrong mask (also c_j == r_2) does not reproduce it;
+* kernel 3's output CSR (what ``csrc/spmm_grouped.cu`` walks, one warp per
+  output strip): every stored block once as a forward item and, in an
+  unmasked run, once as a transposed item, forward items before
+  transposed ones in (run, entry) order; walked in numpy it equals
+  spmm_paired_plain at f64 (1e-13).
 """
 
 import dataclasses
@@ -154,7 +159,7 @@ def test_pair_blocks_round_trip(graph, dtype, source):
     nt = int(cols.max()) + 1
     buckets = spmm_pack.build_row_pairs_bucketed(rows, cols, tiles, T=T)
     run_ptr, run_col, ent_col, vals, min_kpad = \
-        spmm_pack.compact_buckets(buckets)
+        spmm_pack.compact_buckets(buckets)[:5]
     assert vals.dtype == tiles.dtype
     assert run_ptr[-1] == len(ent_col) == len(vals)
     last = np.flatnonzero(np.abs(_symmetric(rows, cols, tiles, nt)).sum(0))
@@ -358,6 +363,72 @@ def test_slot_walk_and_mask_rule(graph, r_pad, source):
     # small against its largest entries)
     assert np.abs(wrong - ref).max() > 1e-6 * np.abs(ref).max()
     # the kernel's table lists exactly the walk's runs, in the same order
-    run_ptr, run_col, ent_col, _, _ = spmm_pack.compact_buckets(buckets)
+    run_ptr, run_col, ent_col = spmm_pack.compact_buckets(buckets)[:3]
     assert [(int(c), [int(e) for e in ent_col[p:q]]) for c, p, q in
             zip(run_col, run_ptr[:-1], run_ptr[1:])] == work
+
+
+def _walk_pair_csr(pairs, X):
+    """csrc/spmm_grouped.cu in numpy: per output strip, its items in the
+    CSR's order, each the block (forward) or its transpose (bit 0 of
+    out_src) times the strip of X at out_src & ~1, written once."""
+    B = spmm.BLOCK
+    W = np.zeros_like(X)
+    for s in range(len(pairs.out_ptr) - 1):
+        acc = np.zeros((X.shape[0], B))
+        for i in range(pairs.out_ptr[s], pairs.out_ptr[s + 1]):
+            e, src = int(pairs.out_ent[i]), int(pairs.out_src[i])
+            col = src & ~1
+            A = pairs.vals[e].T if src & 1 else pairs.vals[e]
+            acc = acc + X[:, col:col + B] @ A
+        W[:, s * B:(s + 1) * B] = acc
+    return W
+
+
+def _paired_pack(rows, cols, tiles):
+    return spmm_pack.compact_buckets(spmm_pack.build_row_pairs_bucketed(
+        rows, cols, tiles, T=tiles.shape[-1]))
+
+
+@pytest.mark.parametrize("source", ["sparse band", "graph"])
+def test_pair_output_csr_holds_every_block_once_per_side(graph, source):
+    rows, cols, tiles = _tile_lists(graph)[source]
+    pairs = _paired_pack(rows, cols, tiles)
+    B = spmm.BLOCK
+    ne = len(pairs.ent_col)
+    run_of = np.repeat(np.arange(len(pairs.run_col)), np.diff(pairs.run_ptr))
+    run_col = pairs.run_col[run_of]        # per entry, mask bit included
+    out_ptr, out_ent, out_src = pairs.out_ptr, pairs.out_ent, pairs.out_src
+    assert {a.dtype for a in (out_ptr, out_ent, out_src)} == \
+        {np.dtype(np.int32)}
+    assert len(out_ptr) == pairs.min_kpad // B + 1
+    assert out_ptr[0] == 0 and out_ptr[-1] == len(out_ent) == len(out_src)
+    trn = (out_src & 1) == 1
+    assert sorted(out_ent[~trn]) == list(range(ne))
+    unmasked = np.flatnonzero((run_col & 1) == 0)
+    assert sorted(out_ent[trn]) == list(unmasked)
+    assert 0 < len(unmasked) < ne
+    for s in range(len(out_ptr) - 1):
+        i0, i1 = out_ptr[s], out_ptr[s + 1]
+        side, ent = trn[i0:i1], out_ent[i0:i1]
+        assert np.all(np.diff(side.astype(int)) >= 0)  # forward first
+        for t in (False, True):
+            assert np.all(np.diff(ent[side == t]) > 0)  # (run, entry)
+        f, t = ent[~side], ent[side]
+        np.testing.assert_array_equal((run_col[f] & ~1) // B, s)
+        np.testing.assert_array_equal(out_src[i0:i1][~side], pairs.ent_col[f])
+        np.testing.assert_array_equal(pairs.ent_col[t] // B, s)
+        np.testing.assert_array_equal(out_src[i0:i1][side], run_col[t] | 1)
+
+
+@pytest.mark.parametrize("source", ["sparse band", "graph"])
+@pytest.mark.parametrize("r_pad", [1, 8, 16])
+def test_pair_output_csr_walk_matches_plain(graph, r_pad, source):
+    rows, cols, tiles = _tile_lists(graph)[source]
+    nt, T = int(cols.max()) + 1, tiles.shape[-1]
+    pairs = _paired_pack(rows, cols, tiles)
+    X = np.random.default_rng(r_pad + 11).standard_normal((r_pad, nt * T))
+    plain = spmm.spmm_paired_plain(
+        spmm.to_device(pairs, torch.float64, "cpu"), torch.as_tensor(X))
+    assert_close(_walk_pair_csr(pairs, X), plain, rtol=1e-13)
+    assert_close(plain, X @ _symmetric(rows, cols, tiles, nt), rtol=1e-13)

@@ -8,10 +8,10 @@ card run it with
 
 (``--noconftest`` because ``tests/conftest.py`` configures JAX).
 Tolerances are relative to max|W|: 1e-12 in f64 and 1e-5 in f32, for a
-different summation order (plus f32 rounding).  The owner-computes strip
-kernel (spmm_sym) is deterministic and tested for it; the atomics kernels
-(spmm_symmetric, spmm_paired) sum in no fixed order, so for them repeated
-launches are held to the same tolerance instead.
+different summation order (plus f32 rounding).  All three kernels sum in
+an order the layout fixes (no float atomics), so repeated launches are
+held to be bitwise equal: kernel 1 (spmm_sym) at r_pad 8, kernels 2
+(spmm_symmetric) and 3 (spmm_paired) at r_pad 8 and 16.
 """
 
 import pytest
@@ -193,17 +193,22 @@ def test_grouped_kernel_matches_plain_on_card(problem, dtype, G):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_atomics_kernels_repeat_within_tolerance(problem, dtype):
-    """Atomics give no fixed summation order: repeated launches need not
-    agree bit for bit, but they agree to the kernels' tolerance."""
+def test_tile_and_paired_kernels_repeat_bitwise(problem, dtype):
+    """Kernels 2 and 3 sum in the order their layouts fix (each one's
+    output CSR): repeated launches agree bit for bit, at r_pad 8 and 16,
+    and with their plain versions to RTOL."""
     TPp = _tiled(problem, dtype, pack="paired")
     Tb = tile_blocks(TPp.Q)
-    X = _operand(TPp, 8, 8, dtype)
-    for run in (lambda: spmm.spmm_symmetric(Tb, X),
-                lambda: tiled.apply_tiled(TPp, X)):
-        W0 = run()
-        for _ in range(4):
-            assert _rel_err(run(), W0) <= RTOL[dtype]
+    for r_pad in (8, 16):
+        X = _operand(TPp, r_pad, r_pad, dtype)
+        for run, plain in ((lambda: spmm.spmm_symmetric(Tb, X),  # noqa: B023
+                            spmm.spmm_symmetric_plain(Tb, X)),
+                           (lambda: tiled.apply_tiled(TPp, X),  # noqa: B023
+                            spmm.spmm_paired_plain(TPp.Q.pairs, X))):
+            W0 = run()
+            assert _rel_err(W0, plain) <= RTOL[dtype]
+            for _ in range(4):
+                assert torch.equal(run(), W0)
 
 
 def test_atomics_kernels_raise_on_what_they_do_not_take(problem):

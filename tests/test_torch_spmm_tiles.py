@@ -15,11 +15,15 @@ sub-blocks (B = ``spmm.BLOCK``).  Checked here:
   wrapper takes no ``interpret`` argument), f32 at T = 32 and 128 and
   r_pad 1, 8, 16 (F32_ATOL); and against ``dcora_tpu.core.tiled
   .apply_tiled``'s XLA tile path at f64 (1e-12 of max|W|) and f32;
-* a numpy walk of the kernel's work order (one block per tile, its warps
-  sharing out the entries U at a time, the products summed per output
-  strip, each touched strip added into W once) reproduces the dense
-  product, with as many strip flushes as the source note counts; the same
-  walk with the transposed product applied on diagonal tiles too does not;
+* the kernel's summation order (``TileBlocks``' output CSR of (block,
+  side) items) holds every block once forward and every block of an
+  off-diagonal tile once transposed, each item in the strip it feeds,
+  forward before transposed, in tile order and inside a tile by a
+  (forward) or b (transposed);
+* a numpy walk of that CSR (per output strip, its items in order)
+  reproduces the dense product and spmm_symmetric_plain (1e-13 at f64);
+  the same walk with the transposed product applied on diagonal tiles too
+  does not;
 * the wrapper refuses an X narrower than min_kpad.
 """
 
@@ -44,7 +48,6 @@ from torch_port_common import (
 )
 
 F64_TOL = 1e-12
-WARPS, U = 4, 2  # csrc/spmm_tile.cu at RB 8
 
 
 def _sparse_band(T=16, nt=11, seed=0, density=0.05):
@@ -127,8 +130,8 @@ def test_compact_tiles_round_trip(graph, dtype, source):
     tiles = tiles.astype(dtype)
     T, B = tiles.shape[-1], spmm.BLOCK
     TB = T // B
-    tile_ptr, tile_row, tile_col, ent_blk, vals, T_, _ = \
-        spmm.compact_tiles(rows, cols, tiles)
+    tile_ptr, tile_row, tile_col, ent_blk, vals, T_ = \
+        spmm.compact_tiles(rows, cols, tiles)[:6]
     assert T_ == T and vals.dtype == tiles.dtype
     assert {a.dtype for a in (tile_ptr, tile_row, tile_col, ent_blk)} == \
         {np.dtype(np.int32)}
@@ -242,36 +245,33 @@ def test_plain_matches_jax_apply_tiled_at_t128(graph, dtype, r_pad):
 
 
 def _walk_tiles(blocks, X, transpose_diagonal=False):
-    """csrc/spmm_tile.cu's work order in numpy: per tile, warp w takes the
-    entries tile_ptr[t] + w U + k WARPS U .. + U; each block's forward
-    product is summed into the tile column's strip b, its transposed one
-    (off the diagonal, or everywhere with transpose_diagonal: the wrong
-    rule) into the tile row's strip a; then each touched strip goes into W
-    once.  Returns W and the number of strip flushes."""
-    tile_ptr, tile_row, tile_col, ent_blk, vals, T, _ = blocks
+    """csrc/spmm_tile.cu's walk in numpy: per output strip s, its items in
+    the CSR's order, a forward item (bit 0 of out_src clear) as the strip
+    of X at out_src times the block, a transposed one as that strip times
+    the block's transpose; each strip written once.  With
+    transpose_diagonal the diagonal tiles' transposed products are added
+    too (the wrong rule).  Returns W and the number of items."""
+    (_, tile_row, tile_col, ent_blk, vals, T, _, out_ptr, out_ent,
+     out_src) = blocks
     B = spmm.BLOCK
     TB = T // B
-    W, flushes, seen = np.zeros_like(X), 0, []
-    for t in range(len(tile_row)):
-        r, c = int(tile_row[t]), int(tile_col[t])
-        both = r != c or transpose_diagonal
-        fwd, trn = {}, {}
-        for w in range(WARPS):
-            for e0 in range(tile_ptr[t] + w * U, tile_ptr[t + 1], WARPS * U):
-                for e in range(e0, min(e0 + U, tile_ptr[t + 1])):
-                    seen.append(e)
-                    a, b = divmod(int(ent_blk[e]), TB)
-                    xr = X[:, r * T + a * B:r * T + (a + 1) * B]
-                    fwd[b] = fwd.get(b, 0.0) + xr @ vals[e]
-                    if both:
-                        xc = X[:, c * T + b * B:c * T + (b + 1) * B]
-                        trn[a] = trn.get(a, 0.0) + xc @ vals[e].T
-        for col, sums in ((c, fwd), (r, trn)):
-            for s, acc in sums.items():
-                W[:, col * T + s * B:col * T + (s + 1) * B] += acc
-                flushes += 1
-    assert sorted(seen) == list(range(len(ent_blk)))  # each entry once
-    return W, flushes
+    W = np.zeros_like(X)
+    for s in range(len(out_ptr) - 1):
+        acc = np.zeros((X.shape[0], B))
+        for e, src in zip(out_ent[out_ptr[s]:out_ptr[s + 1]],
+                          out_src[out_ptr[s]:out_ptr[s + 1]]):
+            col = src & ~1
+            blk = vals[e].T if src & 1 else vals[e]
+            acc = acc + X[:, col:col + B] @ blk
+        W[:, s * B:(s + 1) * B] = acc
+    if transpose_diagonal:
+        for t in np.flatnonzero(tile_row == tile_col):
+            r = int(tile_row[t])
+            for e in range(blocks.tile_ptr[t], blocks.tile_ptr[t + 1]):
+                a, b = divmod(int(ent_blk[e]), TB)
+                W[:, r * T + a * B:r * T + (a + 1) * B] += \
+                    X[:, r * T + b * B:r * T + (b + 1) * B] @ vals[e].T
+    return W, len(out_ent)
 
 
 @pytest.mark.parametrize("source", ["sparse band", "graph"])
@@ -282,17 +282,14 @@ def test_tile_walk_reproduces_dense_product(graph, r_pad, source):
     nt = int(cols.max()) + 1
     blocks = spmm.compact_tiles(*_padded(rows, cols, tiles))
     X = np.random.default_rng(r_pad).standard_normal((r_pad, nt * T))
-    W, flushes = _walk_tiles(blocks, X)
+    W, items = _walk_tiles(blocks, X)
     assert_close(W, X @ _symmetric(rows, cols, tiles, nt), rtol=1e-13)
-    # one flush per (tile, forward strip b) and (off-diagonal tile, a)
-    TB = T // spmm.BLOCK
+    # one item per block and side: forward, and transposed off the diagonal
     tile = np.repeat(np.arange(len(blocks.tile_row)),
                      np.diff(blocks.tile_ptr))
-    a, b = blocks.ent_blk // TB, blocks.ent_blk % TB
     off = blocks.tile_row[tile] != blocks.tile_col[tile]
-    assert flushes == len(np.unique(tile * TB + b)) + \
-        len(np.unique((tile * TB + a)[off]))
-    assert flushes < len(a) + off.sum()
+    assert 0 < off.sum() < len(off)
+    assert items == len(off) + off.sum()
 
 
 @pytest.mark.parametrize("source", ["sparse band", "graph"])
@@ -305,6 +302,60 @@ def test_tile_walk_with_transposed_diagonal_fails(graph, source):
     ref = X @ _symmetric(rows, cols, tiles, nt)
     wrong, _ = _walk_tiles(blocks, X, transpose_diagonal=True)
     assert np.abs(wrong - ref).max() > 1e-3 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("source", ["sparse band", "graph"])
+def test_tile_output_csr_holds_every_block_once_per_side(graph, source):
+    """Every entry is one forward item, every entry of an off-diagonal tile
+    one transposed item; each item sits in the strip it feeds and reads the
+    strip of X its side names; inside a strip the forward items come first,
+    then the transposed, each side in entry order (by tile, then a or
+    b)."""
+    rows, cols, tiles = _tile_lists(graph)[source]
+    blocks = spmm.compact_tiles(*_padded(rows, cols, tiles))
+    B, T = spmm.BLOCK, blocks.T
+    TB = T // B
+    out_ptr, out_ent, out_src = blocks[7:]
+    assert {a.dtype for a in blocks[7:]} == {np.dtype(np.int32)}
+    assert len(out_ptr) == blocks.min_kpad // B + 1
+    assert out_ptr[0] == 0 and out_ptr[-1] == len(out_ent) == len(out_src)
+    tile = np.repeat(np.arange(len(blocks.tile_row)),
+                     np.diff(blocks.tile_ptr))
+    r, c = blocks.tile_row[tile], blocks.tile_col[tile]
+    a, b = blocks.ent_blk // TB, blocks.ent_blk % TB
+    fwd_src, fwd_dst = r * T + a * B, c * T + b * B
+    fwd, trn = [], []
+    for s in range(len(out_ptr) - 1):
+        ents = out_ent[out_ptr[s]:out_ptr[s + 1]]
+        side = out_src[out_ptr[s]:out_ptr[s + 1]] & 1
+        col = out_src[out_ptr[s]:out_ptr[s + 1]] & ~1
+        assert np.all(np.diff(side) >= 0)        # forward first
+        f, t = ents[side == 0], ents[side == 1]
+        assert np.all(np.diff(f) > 0) and np.all(np.diff(t) > 0)
+        assert np.all(fwd_dst[f] == s * B) and np.all(col[side == 0]
+                                                      == fwd_src[f])
+        assert np.all(fwd_src[t] == s * B) and np.all(col[side == 1]
+                                                      == fwd_dst[t])
+        assert np.all(r[t] != c[t])
+        fwd += list(f)
+        trn += list(t)
+    assert sorted(fwd) == list(range(len(blocks.ent_blk)))
+    assert sorted(trn) == list(np.flatnonzero(r != c))
+
+
+@pytest.mark.parametrize("source", ["sparse band", "graph"])
+@pytest.mark.parametrize("r_pad", [1, 8, 16])
+def test_tile_output_csr_walk_matches_plain(graph, r_pad, source):
+    """The kernel's summation order over the output CSR, walked in numpy,
+    equals spmm_symmetric_plain at f64."""
+    rows, cols, tiles = _tile_lists(graph)[source]
+    nt, T = int(cols.max()) + 1, tiles.shape[-1]
+    blocks = spmm.compact_tiles(*_padded(rows, cols, tiles))
+    X = np.random.default_rng(r_pad + 7).standard_normal((r_pad, nt * T))
+    W, _ = _walk_tiles(blocks, X)
+    plain = spmm.spmm_symmetric_plain(
+        spmm.to_device(blocks, torch.float64, "cpu"), torch.as_tensor(X))
+    assert_close(W, plain, rtol=1e-13)
 
 
 # --------------------------------------------------------------------------
