@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the four kernel libraries from ``dcora_tpu_torch/csrc/`` (the three
-SpMM kernels and the edge path's deterministic segment sum; one nvcc per
-source, all started together; ``-Xptxas -v``'s registers and spills are
-printed) and holds every SpMM kernel against its plain PyTorch version on
+Builds the five kernel libraries from ``dcora_tpu_torch/csrc/`` (the three
+SpMM kernels, the edge path's deterministic segment sum and the
+block-tridiagonal preconditioner solve; one nvcc per source, all started
+together; ``-Xptxas -v``'s registers and spills are printed) and holds
+every SpMM kernel against its plain PyTorch version on
 the card at the 10,648-pose grid's shapes, timed in turns with the library
 yardstick ``torch.sparse.mm`` on the same Q and beside the product's bound.
 Then it drives the port's paths, each with the kernels' launch counts set
@@ -31,8 +32,10 @@ counts once per replay):
     (``tools.common.ra_set``): ``ra500`` (500 poses, 420 ranges) and
     ``ra10k`` (9,750 poses, 7,820 ranges, the size of the reference's
     tiers.pyfg), through the strip kernel on the range-aided tiles, one
-    launch per tile product, with the block-tridiagonal preconditioner and
-    the edge path's tCG iterations replayed as CUDA graphs.  ra500 climbs
+    launch per tile product, with the block-tridiagonal preconditioner
+    solved by its kernel (``csrc/btd_solve.cu``, one launch per
+    application) and the edge path's tCG iterations replayed as a CUDA
+    graph.  ra500 climbs
     the whole staircase and is held to certification, the independent
     LDL^T witness and the JAX package's f* (tests/data/
     torch_port_ra_reference.json); ra10k runs its first rank (it does not
@@ -83,9 +86,10 @@ counts once per replay):
 
 Before the RA solves the kernel phase also holds the strip kernel against
 its plain version on the ra10k Q, beside ``torch.sparse.mm`` and the bound;
-the BTD phase holds the preconditioner's CUDA graph against its plain loop
-there, and the tCG phase the edge path's tCG graph against its iterations
-issued one by one, and times one application or iteration of each.  The
+the BTD phase holds the preconditioner's kernel against its plain loop
+there (f32 and f64, r_pad 8, 16 and 24, two applications bitwise equal),
+and the tCG phase the edge path's tCG graph against its iterations issued
+one by one, and times one application or iteration of each.  The
 repeat phase holds the segment-sum kernel (``csrc/segment_sum.cu``) against
 its plain version (``index_add_`` on the card) on one ``apply_Q``'s three
 blocks of edge contributions at ra10k rank 3, in one launch, timed beside
@@ -93,8 +97,9 @@ the three blocks launched one by one, three ``index_add_`` calls and the
 bound, and checks that two runs are bitwise equal: ``apply_Q`` at ra10k
 rank 3, the 200-iteration graph tCG solve, grid10k's chordal init,
 DC2-PGO's ``central_eval``, kernels 2 and 3 on grid10k (r_pad 8 and 16,
-f32 and f64) and a flat-backend tCG through kernel 3 on grid10k's paired
-f32 tiles.  The paired solve prints its iterate's SHA-256.
+f32 and f64), a flat-backend tCG through kernel 3 on grid10k's paired
+f32 tiles and the BTD kernel on ra10k's tiles.  The paired solve prints
+its iterate's SHA-256.
 
 Sequential and fail-closed: every phase prints a line and any failure
 raises, so the exit code is non-zero and the result line is not printed.
@@ -142,6 +147,14 @@ KERNELS = {
                         replaces="dcora_tpu/core/problem.py:318",
                         note="port's own kernel; replaces XLA's segment_sum, "
                         "not a Pallas kernel"),
+    # the port's own kernel: it replaces the two lax.scans of the JAX
+    # package's block-tridiagonal solve, not a Pallas kernel
+    "btd_solve": dict(name="btd_solve", route="cuda",
+                      source="dcora_tpu_torch/csrc/btd_solve.cu",
+                      replaces="dcora_tpu/core/tiled.py:822",
+                      note="port's own kernel; replaces the lax.scans of "
+                      "dcora_tpu/core/tiled.py:822 (XLA), not a Pallas "
+                      "kernel"),
 }
 LIBRARY = "library"  # torch.sparse.mm on the full symmetric Q, CSR
 # relative to max|W|: a different summation order, plus f32 rounding
@@ -151,7 +164,8 @@ F_RTOL = 1e-8  # certified f* against the JAX reference values
 # certify ra500 1.3e-7 apart (the slack of gradnorm_tol 1e-4)
 RA_F_RTOL = 1e-6
 RA_ETA = 1e-4  # the RA driver's certificate tolerance and the witness's
-# the BTD graph against its plain loop, relative to max|Y|
+# the BTD kernel against its plain loop, relative to max|Y| (another
+# summation order, carried along 2 nt - 1 dependent products)
 BTD_TOL = {"float32": 1e-4, "float64": 1e-10}
 # the tCG graph against its iterations issued one by one, relative to
 # max|eta| (the two issue the same kernels; the tolerance dates from the
@@ -277,7 +291,8 @@ def build_phase(spmm):
               f"{lib.build_seconds or 0.0:.2f}s)" for lib in libs.values()))
     for name, lib in libs.items():
         for fn, regs, st, ld in ptxas_lines(lib.build_log):
-            phase(f"[ptxas] {name} (B={spmm.BLOCK}) {fn}: {regs} registers, "
+            block = f" (B={spmm.BLOCK})" if name.startswith("spmm") else ""
+            phase(f"[ptxas] {name}{block} {fn}: {regs} registers, "
                   f"spill stores {st} B, spill loads {ld} B")
             require(st == 0 and ld == 0, f"{fn} spills registers")
 
@@ -440,41 +455,55 @@ def ra_kernel_phase(torch, path):
 
 
 def btd_phase(torch, tps):
-    """The BTD preconditioner on the ra10k tiles: its CUDA graph against the
-    plain loop on the card (the CPU path), and one application of each
-    timed in turns, at f32/f64 x r_pad 8/16."""
+    """The BTD preconditioner on the ra10k tiles: its kernel (one launch
+    per application) against the plain loop on the card (the CPU path), and
+    one application of each timed in turns (events) and the kernel's on the
+    device (profiler), at f32/f64 x r_pad 8/16/24; two applications must be
+    bitwise equal.  Returns (kernel rows, {check: bitwise equal}) for the
+    kernels line and the [repeat] phase."""
     from dcora_tpu_torch.core import tiled
     from dcora_tpu_torch.tools import common
 
-    out = {}
+    rows, checks = [], {}
     gen = torch.Generator(device="cuda").manual_seed(2)
     for dtype, TP in tps.items():
         dt = str(dtype).split(".")[-1]
-        for r_pad in (8, 16):
+        for r_pad in (8, 16, 24):
             V = torch.randn((r_pad, TP.meta.kpad), generator=gen, dtype=dtype,
                             device="cuda")
-            t0 = time.perf_counter()
+            before = tiled.btd_solve.launches
             Y = tiled.precondition_flat(TP, V)
-            torch.cuda.synchronize()
-            capture_s = time.perf_counter() - t0
+            again = tiled.precondition_flat(TP, V)
             Yp = tiled._precondition_btd(TP, V)
             torch.cuda.synchronize()
-            require(bool(torch.isfinite(Y).all()), "BTD graph not finite")
-            rel = float((Y - Yp).abs().max()) / float(Yp.abs().max())
-            require(rel <= BTD_TOL[dt], f"BTD graph disagrees with the loop "
+            require(tiled.btd_solve.launches == before + 2, "the BTD "
+                    "kernel did not launch once per application")
+            require(bool(torch.isfinite(Y).all()), "BTD kernel not finite")
+            err = float((Y - Yp).abs().max())
+            rel = err / float(Yp.abs().max())
+            require(rel <= BTD_TOL[dt], f"BTD kernel disagrees with the loop "
                     f"({dt}, r_pad {r_pad}): rel {rel:.3e}")
-            graph_ms, plain_ms = common.time_turns_ms(
+            checks[f"btd_solve ra10k {dt} r_pad {r_pad}"] = \
+                torch.equal(Y, again)
+            kernel_ms, plain_ms = common.time_turns_ms(
                 [lambda: tiled.precondition_flat(TP, V),  # noqa: B023
                  lambda: tiled._precondition_btd(TP, V)], n=10)  # noqa: B023
+            dev_ms = common.device_ms(
+                lambda: tiled.precondition_flat(TP, V))  # noqa: B023
             bound = common.btd_bound_ms(TP.meta.nt, TP.meta.T, r_pad, dtype,
                                         hbm_gbs(torch))
-            out[(dt, r_pad)] = graph_ms
-            phase(f"[btd] ra10k {dt} r_pad={r_pad} nt={TP.meta.nt}: graph "
-                  f"{graph_ms:.4f} ms, plain loop {plain_ms:.4f} ms per "
-                  f"application (CUDA events, 10 back to back, median of 3 "
-                  f"turns), bound {bound[0]:.4f} ms ({bound[1]}), rel err "
-                  f"{rel:.2e}, capture {capture_s:.2f}s")
-    return out
+            rows.append(dict(kernel="btd_solve", problem="ra10k", dtype=dt,
+                             r_pad=r_pad, live=r_pad, max_abs_err=err,
+                             ms=kernel_ms, plain_ms=plain_ms,
+                             device_ms=dev_ms, library_ms=None,
+                             bound_ms=bound[0], bound_by=bound[1]))
+            phase(f"[btd] ra10k {dt} r_pad={r_pad} nt={TP.meta.nt}: kernel "
+                  f"{kernel_ms:.4f} ms (device {dev_ms:.4f}), plain loop "
+                  f"{plain_ms:.4f} ms per application (CUDA events, 10 back "
+                  f"to back, median of 3 turns), bound {bound[0]:.4f} ms "
+                  f"({bound[1]}), max_abs_err={err:.3e} (rel {rel:.2e}), two "
+                  f"applications bitwise equal {torch.equal(Y, again)}")
+    return rows, checks
 
 
 def counting_products(tiled):
@@ -644,14 +673,15 @@ def tcg_phase(torch, path):
     return graph_ms / full, loop_ms / full
 
 
-def repeat_phase(torch, paths, mr):
+def repeat_phase(torch, paths, mr, btd_checks):
     """[repeat] With torch's deterministic switch off, two runs of each of
     these are bitwise equal: apply_Q on ra10k at rank 3 (odometry init),
     the 200-iteration tCG solve through its CUDA graph there, grid10k's
     chordal init, and DC2-PGO's central_eval (at its certified smallGrid3D
     optimum, 25 poses per robot, and at grid10k's chordal init at rank 5 in
     5 robots, rows of ~2,130 poses), and on grid10k's paired build kernels
-    2 and 3 and a flat-backend tCG (spmm_repeats).  Then the segment-sum
+    2 and 3 and a flat-backend tCG (spmm_repeats), and the BTD kernel on
+    ra10k's tiles (btd_checks, from btd_phase).  Then the segment-sum
     kernel against its plain version (index_add_ per part on the card): on
     grid10k's per-robot rows, and on one apply_Q's three blocks of edge
     contributions at ra10k rank 3 (seg_rows).  Returns the kernel's
@@ -699,6 +729,7 @@ def repeat_phase(torch, paths, mr):
                 (Pc, G0, X, blocks))
 
     checks.update(spmm_repeats(torch, paths["grid10k"]))
+    checks.update(btd_checks)
     path, res = mr
     e_small, _ = evals(path, res.X, 5)
     e_grid, grid = evals(paths["grid10k"], lifted.pad_rank(
@@ -898,16 +929,8 @@ def raslam_phase(torch, name, path, ref, r_max):
     from dcora_tpu_torch.verification import (
         sparse_Q_ra, split_measurements, verify_solution)
 
-    btd, real_btd = {}, tiled.precondition_btd_graph
-
-    def counted_btd(TP, Vf):
-        key = f"{str(Vf.dtype).split('.')[-1]}/{Vf.shape[0]}"
-        btd[key] = btd.get(key, 0) + 1
-        return real_btd(TP, Vf)
-
     res = {}
     products, restore = counting_products(tiled)
-    tiled.precondition_btd_graph = counted_btd
     try:
         spmm.reset_launches()
         t0 = time.perf_counter()
@@ -918,7 +941,6 @@ def raslam_phase(torch, name, path, ref, r_max):
         counts = spmm.launch_counts()
     finally:
         restore()
-        tiled.precondition_btd_graph = real_btd
     require(st.X.rot.is_cuda and st.rounded.sph.is_cuda,
             f"{name}: state tensors are not on CUDA")
     require(st.rounded.rot.shape == (g.n, 3, 3)
@@ -935,6 +957,8 @@ def raslam_phase(torch, name, path, ref, r_max):
             f"{counts}, {products[0]} products")
     require(counts["spmm_paired"] == 0 and counts["spmm_symmetric"] == 0,
             f"{name}: the RA solve launched another SpMM kernel: {counts}")
+    require(counts["btd_solve"] > 0, f"{name}: the RA tile phases never "
+            f"launched the BTD kernel: {counts}")
     t1 = time.perf_counter()
     rep = verify_solution(gm.relative_measurements, st.X, 3, eta=RA_ETA)
     verify_s = time.perf_counter() - t1
@@ -970,7 +994,7 @@ def raslam_phase(torch, name, path, ref, r_max):
           f"wall={wall:.2f}s (read {res['read_s']:.2f}s, init "
           f"{res['init_s']:.2f}s, staircase {res['staircase_s']:.2f}s: "
           f"{stages}) verify={verify_s:.2f}s; tile products {products[0]}, "
-          f"launches {counts}; BTD applications {btd}")
+          f"launches {counts}")
     require(abs(rep["f_indep"] - f_lifted) <= f_tol, f"{name}: the lifted "
             f"cost {f_lifted!r} is not the independent verifier's "
             f"{rep['f_indep']!r}")
@@ -2110,10 +2134,11 @@ def main() -> int:
         par_scaling_phase(torch, paths["grid10k"])
         ra_rows, tps = ra_kernel_phase(torch, paths["ra10k"])
         rows += ra_rows
-        btd_phase(torch, tps)
+        btd_rows, btd_checks = btd_phase(torch, tps)
+        rows += btd_rows
         del tps
         tcg_phase(torch, paths["ra10k"])
-        rows += repeat_phase(torch, paths, mr)
+        rows += repeat_phase(torch, paths, mr, btd_checks)
         os.environ.pop("DCORA_SPMM_PACK", None)
         for name, (_, r_max) in RA_SETS.items():
             ra[name] = raslam_phase(torch, name, paths[name],
@@ -2127,10 +2152,14 @@ def main() -> int:
     # r_pad 8 for spmm_bench; kernel 1's launches are those of the PGO, the
     # GNC (centralized and the agent's init), the RA solves, the parallel
     # rounds (PGO and RA) and the g2o100k solve together
-    # the segment sum's are those of every path read, DC2-PGO's too
+    # the segment sum's and the BTD kernel's are those of every path read,
+    # DC2-PGO's too (only the RA solves take the BTD preconditioner)
     path_counts = [counts, paired, benched, gnc_counts, agent_counts,
                    mr_counts, par_counts, par_ra_counts, g2o_counts,
                    *(c for c, _ in ra.values())]
+    path_names = ("pgo", "paired pgo", "bench", "gnc2500", "gnc agent init",
+                  "DC2-PGO", "parallel grid10k", "parallel ra", "g2o100k",
+                  *ra)
     launches = dict(spmm_sym=counts["spmm_sym"] + sum(
                         c["spmm_sym"] for c, _ in ra.values())
                     + gnc_counts["spmm_sym"] + agent_counts["spmm_sym"]
@@ -2138,7 +2167,8 @@ def main() -> int:
                     + g2o_counts["spmm_sym"],
                     spmm_tile=benched["spmm_symmetric"],
                     spmm_paired=paired["spmm_paired"],
-                    segment_sum=sum(c["segment_sum"] for c in path_counts))
+                    segment_sum=sum(c["segment_sum"] for c in path_counts),
+                    btd_solve=sum(c["btd_solve"] for c in path_counts))
     phase("[launches] spmm_sym per path: " + ", ".join(
         [f"pgo {counts['spmm_sym']}", f"gnc2500 {gnc_counts['spmm_sym']}",
          f"gnc agent init {agent_counts['spmm_sym']}"]
@@ -2146,11 +2176,11 @@ def main() -> int:
         + [f"parallel grid10k {par_counts['spmm_sym']}",
            f"parallel ra {par_ra_counts['spmm_sym']}",
            f"g2o100k {g2o_counts['spmm_sym']}"]))
-    phase("[launches] segment_sum per path: " + ", ".join(
-        f"{k} {c['segment_sum']}" for k, c in zip(
-            ("pgo", "paired pgo", "bench", "gnc2500", "gnc agent init",
-             "DC2-PGO", "parallel grid10k", "parallel ra", "g2o100k",
-             *ra), path_counts)))
+    require(all(c["btd_solve"] > 0 for c, _ in ra.values()),
+            "an RA path never launched the BTD kernel")
+    for kern in ("segment_sum", "btd_solve"):
+        phase(f"[launches] {kern} per path: " + ", ".join(
+            f"{k} {c[kern]}" for k, c in zip(path_names, path_counts)))
     main_dtype = dict(spmm_sym="float64", spmm_tile="float32",
                       spmm_paired="float64")
     entries = []
@@ -2159,6 +2189,9 @@ def main() -> int:
         if name == "segment_sum":  # one apply_Q's sums at ra10k rank 3
             main_row = next(r for r in mine if r["dtype"] == "float64"
                             and r["problem"] == "ra10k apply_Q")
+        elif name == "btd_solve":  # the RA f32 tile phase's application
+            main_row = next(r for r in mine if r["dtype"] == "float32"
+                            and r["r_pad"] == 8)
         else:
             main_row = next(r for r in mine
                             if r["dtype"] == main_dtype[name]

@@ -5,9 +5,9 @@ Each kernel library (one ``.cu`` source under ``csrc/``) is built at first
 use with ``nvcc`` into ``dcora_tpu_torch/build/`` and loaded with ctypes;
 :func:`build_all` builds every library with one ``nvcc`` per source, all
 started together.  Nothing is compiled or loaded on import.  The wrappers
-live in ``core/spmm.py`` (the SpMM kernels) and ``core/segment.py`` (the
-edge path's segment sum); both import this module and neither imports the
-other.
+live in ``core/spmm.py`` (the SpMM kernels), ``core/segment.py`` (the
+edge path's segment sum) and ``core/tiled.py`` (the block-tridiagonal
+preconditioner solve); each imports this module.
 
 Each wrapper counts its launches (:func:`count_launch`,
 :func:`launch_counts`).  A launch issued while a CUDA graph is being
@@ -135,6 +135,9 @@ _SOURCES = {
     "segment_sum": ({s: [_P] * 2
                      for s in ("dcora_segment_sum_f32",
                                "dcora_segment_sum_f64")}, [], []),
+    "btd_solve": ({s: [_P] * 5 + [_I] * 2 + [_P]
+                   for s in ("dcora_btd_solve_f32", "dcora_btd_solve_f64")},
+                  [], []),
 }
 _LIBRARIES: Dict[str, _Library] = {}
 _LIBRARIES_LOCK = threading.Lock()
@@ -188,7 +191,8 @@ def check_launch(name: str, err: int):
 # Launch counts, kept on each wrapper (fn.launches, fn.captured)
 # --------------------------------------------------------------------------
 
-KERNELS = ("spmm_sym", "spmm_symmetric", "spmm_paired", "segment_sum")
+KERNELS = ("spmm_sym", "spmm_symmetric", "spmm_paired", "segment_sum",
+           "btd_solve")
 _WRAPPERS: Dict[str, object] = {}
 
 

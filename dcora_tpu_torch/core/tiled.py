@@ -41,7 +41,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from dcora_tpu_torch.core import lifted
+from dcora_tpu_torch.core import kernels, lifted
 from dcora_tpu_torch.core import problem as prob
 from dcora_tpu_torch.core.lifted import RAState
 from dcora_tpu_torch.core.manifold import inv_sqrt_psd
@@ -135,9 +135,10 @@ class TiledProblem:
     # _factor_btd
     btd_ltil: Optional[torch.Tensor] = None   # [nt, T, T] (L~_0 = 0)
     btd_sinv: Optional[torch.Tensor] = None   # [nt, T, T]
-    # the BTD solve captured as a CUDA graph per (r_pad, dtype), made at
-    # its first application on the card (BTDGraph)
-    btd_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
+    # the factors laid out panel by panel for btd_solve's kernel
+    # (_btd_layout), made at the first application on the card
+    btd_layout: Optional[tuple] = dataclasses.field(default=None,
+                                                    repr=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -647,87 +648,79 @@ def _precondition_btd(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
     return Y.transpose(0, 1).reshape(r_pad, meta.kpad)
 
 
-def _btd_solve_into(Ltil: torch.Tensor, Sinv: torch.Tensor,
-                    V3: torch.Tensor, U: torch.Tensor, Wd: torch.Tensor,
-                    Y: torch.Tensor) -> None:
-    """_precondition_btd's recurrences written into preallocated buffers,
-    one fused product-and-subtract (addmm) per step: the op sequence the
-    CUDA graph of BTDGraph records.  V3, U, Wd, Y are [nt, r_pad, T]."""
-    nt = V3.shape[0]
-    U[0].copy_(V3[0])  # L~_0 = 0
-    for i in range(1, nt):
-        torch.addmm(V3[i], U[i - 1], Ltil[i].T, alpha=-1.0, out=U[i])
-    torch.bmm(U, Sinv, out=Wd)
-    Y[nt - 1].copy_(Wd[nt - 1])
-    for i in range(nt - 2, -1, -1):
-        torch.addmm(Wd[i], Y[i + 1], Ltil[i + 1], alpha=-1.0, out=Y[i])
+# CTAs per thread-block cluster of csrc/btd_solve.cu (its kCluster): each
+# owns 128 / 8 of a step's output columns (PERF.md: 1-16 timed on the
+# H100; 16, not portable, was 5-12 % faster)
+BTD_CLUSTER = 8
+_BTD_ROWS = 8  # rows of V per cluster
 
 
-class BTDGraph:
-    """The block-tridiagonal solve of one TiledProblem at one (r_pad,
-    dtype), captured once as a CUDA graph and replayed per application.
-
-    The solve is 2 * nt dependent [r_pad, T] x [T, T] products (732 at
-    nt = 366): issued one by one from Python, each costs more host time
-    than device time.  A replay issues the whole sequence with one call.
-    The products are captured with cuBLASLt as the preferred BLAS library:
-    for these skinny float32 products the default cuBLAS heuristic picks a
-    128-wide tile kernel that takes ~20x longer than cuBLASLt's on an
-    NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
-    Input and output are static buffers owned by the graph; a call copies
-    Vf in and returns a new tensor."""
-
-    def __init__(self, TP: TiledProblem, r_pad: int, dtype: torch.dtype):
-        meta, dev = TP.meta, TP.device
-        self.x = torch.zeros((r_pad, meta.kpad), dtype=dtype, device=dev)
-        bufs = [torch.zeros((meta.nt, r_pad, meta.T), dtype=dtype,
-                            device=dev) for _ in range(3)]
-        self.U, self.Wd, self.Y = bufs
-        Ltil, Sinv = TP.btd_ltil.to(dtype), TP.btd_sinv.to(dtype)
-        V3 = self.x.view(r_pad, meta.nt, meta.T).transpose(0, 1)
-        args = (Ltil, Sinv, V3, *bufs)
-        blas = torch.backends.cuda.preferred_blas_library()
-        torch.backends.cuda.preferred_blas_library("cublaslt")
-        try:
-            # warm up on a side stream (cuBLAS handles and workspaces)
-            # before capture, as torch.cuda.graphs requires
-            side = torch.cuda.Stream(device=dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                _btd_solve_into(*args)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                _btd_solve_into(*args)
-        finally:
-            torch.backends.cuda.preferred_blas_library(blas)
-        self._keep = (Ltil, Sinv)  # the graph reads these addresses
-
-    def __call__(self, Vf: torch.Tensor) -> torch.Tensor:
-        self.x.copy_(Vf)
-        self.graph.replay()
-        return self.Y.transpose(0, 1).reshape(self.x.shape)
+def _check_btd(TP: TiledProblem, Vf: torch.Tensor):
+    if TP.btd_ltil is None:
+        raise ValueError("btd_solve: the TiledProblem has no BTD factor")
+    if Vf.dtype not in (torch.float32, torch.float64) or \
+            Vf.dtype != TP.btd_ltil.dtype:
+        raise TypeError(f"btd_solve: V is {Vf.dtype}, the factors "
+                        f"{TP.btd_ltil.dtype} (float32 or float64, alike)")
+    if Vf.dim() != 2 or Vf.shape[1] != TP.meta.kpad:
+        raise ValueError(f"btd_solve: V is {tuple(Vf.shape)}, not "
+                         f"[r_pad, {TP.meta.kpad}]")
+    if Vf.shape[0] < _BTD_ROWS or Vf.shape[0] % _BTD_ROWS:
+        raise ValueError(f"btd_solve: r_pad {Vf.shape[0]} is not a "
+                         f"positive multiple of {_BTD_ROWS}")
+    if not Vf.is_contiguous():
+        raise ValueError("btd_solve: V is not contiguous")
+    if Vf.device != TP.btd_ltil.device:
+        raise ValueError(f"btd_solve: V on {Vf.device}, the factors on "
+                         f"{TP.btd_ltil.device}")
 
 
-def precondition_btd_graph(TP: TiledProblem, Vf: torch.Tensor
-                           ) -> torch.Tensor:
-    """M^{-1} v on the card through TP's cached BTDGraph for Vf's shape and
-    dtype (captured at the first call)."""
-    key = (Vf.shape[0], Vf.dtype)
-    if key not in TP.btd_graphs:
-        TP.btd_graphs[key] = BTDGraph(TP, *key)
-    return TP.btd_graphs[key](Vf)
+def _btd_layout(TP: TiledProblem):
+    """L~^T, inv(S) and L~ (the B of the forward, diagonal and backward
+    products) laid out panel by panel for the kernel's cluster: [nt,
+    BTD_CLUSTER, T, T / BTD_CLUSTER], panel j of block i = B_i[:, j W:(j+1)
+    W], so each CTA's panel is contiguous.  Made once per TiledProblem
+    (three factors' memory)."""
+    if TP.btd_layout is None:
+        nt, T, C = TP.meta.nt, TP.meta.T, BTD_CLUSTER
+        TP.btd_layout = tuple(
+            B.reshape(nt, T, C, T // C).transpose(1, 2).contiguous()
+            for B in (TP.btd_ltil.transpose(1, 2), TP.btd_sinv,
+                      TP.btd_ltil))
+    return TP.btd_layout
+
+
+@kernels.counted
+def btd_solve(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
+    """M^{-1} v of the block-tridiagonal preconditioner: V [r_pad, kpad]
+    (r_pad a multiple of 8, contiguous, the factors' dtype and device) ->
+    a new [r_pad, kpad].  A CUDA V launches csrc/btd_solve.cu once (a
+    cluster of BTD_CLUSTER CTAs per 8 rows) or raises; a CPU V runs the
+    plain loop _precondition_btd."""
+    _check_btd(TP, Vf)
+    if Vf.device.type == "cpu":
+        return _precondition_btd(TP, Vf)
+    if TP.meta.T != 128:
+        raise ValueError(f"btd_solve: the kernel takes 128-wide tiles, not "
+                         f"{TP.meta.T}")
+    factors = _btd_layout(TP)
+    fn = kernels.entry("btd_solve", Vf.dtype)
+    Y = torch.empty_like(Vf)
+    with torch.cuda.device(Vf.device):
+        kernels.check_launch("btd_solve", fn(
+            *(f.data_ptr() for f in factors), Vf.data_ptr(), Y.data_ptr(),
+            TP.meta.nt, Vf.shape[0], kernels.stream(Vf)))
+    kernels.count_launch(btd_solve)
+    return Y
 
 
 def precondition_flat(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
     """Block-Jacobi solve in flat layout (cf. prob.apply_preconditioner):
-    block-tridiagonal with TP.btd_ltil (the plain loop on the CPU, its CUDA
-    graph on the card), tile-granularity with TP.diag_inv, per-pose (dh x
-    dh) blocks otherwise."""
+    block-tridiagonal with TP.btd_ltil (btd_solve: its kernel on the card,
+    the plain loop on the CPU), tile-granularity with TP.diag_inv, per-pose
+    (dh x dh) blocks otherwise."""
     if TP.btd_ltil is not None:
-        if Vf.is_cuda:
-            return precondition_btd_graph(TP, Vf)
-        return _precondition_btd(TP, Vf)
+        return btd_solve(TP, Vf)
     if TP.diag_inv is not None:
         return _precondition_tiles(TP, Vf)
     meta = TP.meta

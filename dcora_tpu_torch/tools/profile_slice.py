@@ -22,10 +22,11 @@ every RTR call of the staircase is logged (backend, tile dtype, rank,
 outer iterations, tCG steps, seconds), and the first call of each kind
 (f32 tiles, f64 tiles, f64 edge path) runs under ``torch.profiler``, which
 gives that kind's device busy / idle share and its kernel time by name.
-It also reports the BTD applications per (r_pad, dtype), the CUDA-event ms
-of one application through its CUDA graph and through the plain loop at
-the solve's shapes, the bound, and the share of the wall that the graph's
-applications take.
+It also reports the BTD applications per (r_pad, dtype) (the kernel's own
+launch count beside them), the CUDA-event ms of one application through
+its kernel (``tiled.btd_solve``, ``csrc/btd_solve.cu``) and through the
+plain loop at the solve's shapes, the bound, and the share of the wall
+that the kernel's applications take.
 
 The SpMM layout is the build's default: set ``DCORA_SPMM_PACK=paired`` to
 profile the paired packs.  Prints one JSON object and writes it to
@@ -132,17 +133,18 @@ def _solve(path: str) -> dict:
     """One certified solve of a .g2o or .pyfg file on the card, with its
     stages, SpMM launches and BTD applications."""
     counts, tps = defaultdict(int), {}
-    real = tiled.precondition_btd_graph
+    real = tiled.precondition_flat
 
     def counted(TP, Vf):
-        key = (Vf.shape[0], str(Vf.dtype).split(".")[-1])
-        counts[key] += 1
-        tps[key] = TP
+        if TP.btd_ltil is not None:
+            key = (Vf.shape[0], str(Vf.dtype).split(".")[-1])
+            counts[key] += 1
+            tps[key] = TP
         return real(TP, Vf)
 
     res = {}
     spmm.reset_launches()
-    tiled.precondition_btd_graph = counted
+    tiled.precondition_flat = counted
     try:
         t0 = time.perf_counter()
         if path.endswith(".pyfg"):
@@ -158,7 +160,7 @@ def _solve(path: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        tiled.precondition_btd_graph = real
+        tiled.precondition_flat = real
     st = res["staircase"]
     return dict(wall_s=wall, f=f, f_lifted=st.f_final, rank=st.final_rank,
                 certified=st.certified, gradnorm=st.gradnorm_final,
@@ -174,8 +176,8 @@ def _solve(path: str) -> dict:
 
 def btd_times(tps: dict, counts: dict, wall_s: float) -> list:
     """Per (r_pad, dtype) of a solve: CUDA-event ms of one BTD application
-    through the CUDA graph and through the plain loop (median of 3 turns,
-    on the solve's own TiledProblem), the bound, and the graph's share of
+    through its kernel and through the plain loop (median of 3 turns, on
+    the solve's own TiledProblem), the bound, and the kernel's share of
     the solve's wall."""
     gbs = common.nominal_hbm_gbs(torch.cuda.get_device_name(0)) or \
         common.NOMINAL_HBM_GBS[0][1]
@@ -185,16 +187,16 @@ def btd_times(tps: dict, counts: dict, wall_s: float) -> list:
         gen = torch.Generator(device="cuda").manual_seed(r_pad)
         V = torch.randn((r_pad, TP.meta.kpad), generator=gen, dtype=dtype,
                         device="cuda")
-        graph_ms, plain_ms = common.time_turns_ms(
-            [lambda: tiled.precondition_btd_graph(TP, V),
+        kernel_ms, plain_ms = common.time_turns_ms(
+            [lambda: tiled.btd_solve(TP, V),
              lambda: tiled._precondition_btd(TP, V)], n=10)
         bound, by = common.btd_bound_ms(TP.meta.nt, TP.meta.T, r_pad, dtype,
                                         gbs)
         n = counts[f"{r_pad}/{dt}"]
         rows.append(dict(r_pad=r_pad, dtype=dt, nt=TP.meta.nt,
-                         applications=n, graph_ms=graph_ms,
+                         applications=n, kernel_ms=kernel_ms,
                          plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                         graph_share_of_wall=n * graph_ms * 1e-3 / wall_s))
+                         kernel_share_of_wall=n * kernel_ms * 1e-3 / wall_s))
     return rows
 
 

@@ -19,6 +19,34 @@ update ``cost_rel_first``, of the last round ``cost_rel_last``, weight gap
 ``w_max``, and whether rank, iterations and verdict agree ``same``), about
 a minute per seed.  The data are the generated test sets
 (``$DCORA_DATA_DIR``, else ``.data_cache`` at the repo root).
+
+The host's threads move the JAX package too: XLA's CPU backend splits its
+products over a thread pool unless told not to.  ``traces`` writes the
+distributed runs' round costs up to the first weight update, for both
+engines on both host paths, to a JSON file; ``spread`` compares every pair
+of traces across such files, so across processes started with other
+``XLA_FLAGS`` or torch thread counts (``--torch-threads``, default 1 as
+the tests):
+
+    JAX_PLATFORMS=cpu python tests/gnc_host_path_spread.py traces a.json 7
+    XLA_FLAGS="--xla_cpu_multi_thread_eigen=false \
+        intra_op_parallelism_threads=1" JAX_PLATFORMS=cpu \
+        python tests/gnc_host_path_spread.py traces b.json 7
+    python tests/gnc_host_path_spread.py spread a.json b.json
+
+Measured on an 8-core x86 host (CPU runs, seed 7, behind the gate of
+test_distributed_gnc_matches_jax): ``cost_rel_first`` of
+
+    JAX native, default threading vs one thread          1.35e-8
+    JAX numpy, default threading vs one thread           5.2e-9
+    JAX native vs numpy, default threading               5.2e-9
+    JAX native vs numpy, one thread                      2.13e-8
+    JAX native one thread vs numpy default               1.84e-8
+    port native vs numpy (torch threads 1 or 4)          1.38e-8
+    port, torch threads 1 vs 4 (either path)             0
+    port numpy vs JAX native, default threading          1.53e-8
+    port numpy vs JAX native, one thread                 2.87e-8
+    port native vs JAX native, either threading          3.8e-9 / 1.50e-8
 """
 
 from __future__ import annotations
@@ -142,13 +170,64 @@ def _compare(kind, a, b):
                 same=a["verdict"] == b["verdict"])
 
 
+def _traces(data, out, seeds, threads):
+    """The distributed runs' round costs up to the first weight update,
+    {engine-path: {seed: [cost]}}, with this process's threading, to
+    `out`."""
+    torch.set_num_threads(threads)
+    rec = dict(xla_flags=os.environ.get("XLA_FLAGS", ""),
+               torch_threads=threads, traces={})
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in seeds:
+            for engine in "JT":
+                for native in (1, 0):
+                    _host_path(engine, native)
+                    r = _distributed(data, seed, engine, tmp)
+                    rec["traces"].setdefault(_name((engine, native)), {})[
+                        str(seed)] = r["cost"][:r["first"]].tolist()
+    _host_path("J", 1)
+    with open(out, "w") as fh:
+        json.dump(rec, fh)
+
+
+def _spread(files):
+    """cost_rel_first of every pair of traces across `files`, one JSON row
+    per pair and seed."""
+    runs = []
+    for f in files:
+        with open(f) as fh:
+            rec = json.load(fh)
+        tag = f"{os.path.basename(f)} (XLA_FLAGS '{rec['xla_flags']}', " \
+              f"torch threads {rec['torch_threads']})"
+        runs += [(tag, name, tr) for name, tr in rec["traces"].items()]
+    for i, (ta, na, a) in enumerate(runs):
+        for tb, nb, b in runs[i + 1:]:
+            for seed in sorted(set(a) & set(b), key=int):
+                ca, cb = np.asarray(a[seed]), np.asarray(b[seed])
+                print(json.dumps(dict(
+                    seed=int(seed), a=f"{na} {ta}", b=f"{nb} {tb}",
+                    cost_rel_first=float(np.max(np.abs(ca - cb)
+                                                / np.abs(cb))))),
+                      flush=True)
+
+
 def main(argv):
-    kind, seeds = argv[0], [int(s) for s in argv[1:]]
-    assert kind in ("robust", "distributed"), kind
+    kind = argv[0]
+    if kind == "spread":
+        return _spread(argv[1:])
+    threads = 1
+    if "--torch-threads" in argv:
+        i = argv.index("--torch-threads")
+        threads = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     assert jnative.available(), "the JAX package's native library is absent"
-    torch.set_num_threads(1)
+    torch.set_num_threads(threads)
     data = os.environ.get("DCORA_DATA_DIR") or jds.ensure_test_datasets(
         os.path.join(ROOT, ".data_cache"))
+    if kind == "traces":
+        return _traces(data, argv[1], [int(s) for s in argv[2:]], threads)
+    seeds = [int(s) for s in argv[1:]]
+    assert kind in ("robust", "distributed"), kind
     with tempfile.TemporaryDirectory() as tmp:
         for seed in seeds:
             runs = {}

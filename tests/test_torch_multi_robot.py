@@ -5,8 +5,10 @@ generated files, on the CPU:
     Chordal and the Odometry init: the same certified flag, rank and round
     count, f* and every round's cost to 1e-8 relative;
   * its distributed GNC pipeline on smallGrid3D with 10 % planted
-    outliers and 3 robots: every round's cost to 1e-8 until the first
-    weight update; then the same rounds, rank and classification (weight
+    outliers and 3 robots: every round's cost until the first weight
+    update to 1e-7 on the port's numpy host path and 5e-8 on its native
+    one (gates from each engine's spread against itself, the tests'
+    docstrings); then the same rounds, rank and classification (weight
     < 0.5), the weights to 1e-4 and the final cost to 1e-3 relative.  The
     first update's adaptive mu comes from the team's largest residual,
     which the two engines' iterates give to ~1e-10 relative after 50
@@ -125,10 +127,21 @@ def _distributed_gnc(data_dir, tmp_path, monkeypatch, port_native):
 
 
 def test_distributed_gnc_matches_jax(data_dir, tmp_path, monkeypatch):
-    """The port on its numpy reader and Jacobi build, as when this gate
-    was set: every round up to the first weight update within 1e-8."""
+    """The port on its numpy reader and Jacobi build: every round up to
+    the first weight update within 1e-7.  The gate comes from the spread
+    of each engine against itself (tests/gnc_host_path_spread.py traces /
+    spread, seed 7, an 8-core host): the JAX package moves with XLA's CPU
+    threading (default against --xla_cpu_multi_thread_eigen=false
+    intra_op_parallelism_threads=1) by 1.35e-8 on its native host path and
+    5.2e-9 on its numpy one, and its two host paths land 5.2e-9 (default
+    threading) to 2.13e-8 (across threadings) apart; the port's two host
+    paths land 1.38e-8 apart, and its torch thread count (1 or 4) moves
+    nothing.  The port's numpy path lies 1.53e-8 from JAX's default run and
+    2.87e-8 from its one-thread run, so the earlier gate of 1e-8 (F_RTOL)
+    held or failed with the host's threading.  1e-7 is about five times
+    the largest spread of an engine against itself (2.13e-8)."""
     ct, cj = _distributed_gnc(data_dir, tmp_path, monkeypatch, False)
-    np.testing.assert_allclose(ct, cj, rtol=F_RTOL)
+    np.testing.assert_allclose(ct, cj, rtol=1e-7)
 
 
 def test_distributed_gnc_native_matches_jax(data_dir, tmp_path,

@@ -5,8 +5,8 @@ parser: the edge path, the tiled path with the block-tridiagonal (BTD)
 preconditioner, and the certification.
 
 Tolerances (relative to the reference's max): f64 operators 1e-10 (the
-port's bar, tests/torch_port_common.py); the graph-form BTD recurrences
-against the plain loop 1e-12 in f64 and 1e-5 in f32; Lanczos eigenvalues
+port's bar, tests/torch_port_common.py; the BTD solve on its own:
+tests/test_torch_btd.py); Lanczos eigenvalues
 from the same start vector to 1e-10 of lambda_max(Q) on the edge operator
 and 1e-8 on the tiled one: the bottom of S is found by Lanczos on
 S - 2 lambda_max I, so its absolute accuracy is set by the top of the
@@ -196,28 +196,6 @@ def test_ra_flat_ops_and_btd(tiled_pair, ra, r_pad):
                                                            Gj)))
     assert_close(ttiled.retract_flat(TPt.meta, Xt, 0.1 * Tt),
                  jtiled.retract_flat(TPj.meta, Xj, 0.1 * Tj))
-
-
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_btd_graph_recurrences_match_loop(tiled_pair, dtype):
-    """The op sequence the card's CUDA graph records (_btd_solve_into:
-    one fused addmm per step into static buffers), run eagerly, against
-    the plain loop of the CPU path."""
-    _, TPt = tiled_pair
-    m = TPt.meta
-    Ltil, Sinv = TPt.btd_ltil.to(dtype), TPt.btd_sinv.to(dtype)
-    for r_pad in (8, 16):
-        V = torch.as_tensor(np.random.default_rng(r_pad).standard_normal(
-            (r_pad, m.kpad)), dtype=dtype)
-        bufs = [torch.zeros((m.nt, r_pad, m.T), dtype=dtype)
-                for _ in range(3)]
-        ttiled._btd_solve_into(Ltil, Sinv,
-                               V.view(r_pad, m.nt, m.T).transpose(0, 1),
-                               *bufs)
-        out = bufs[2].transpose(0, 1).reshape(r_pad, m.kpad)
-        ref = ttiled._precondition_btd(TPt, V)
-        assert_close(out, ref, rtol=1e-12 if dtype == torch.float64
-                     else 1e-5)
 
 
 @pytest.mark.parametrize("which", ["critical", "saddle"])

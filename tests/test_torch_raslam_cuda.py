@@ -1,6 +1,7 @@
 """The RA-SLAM slice of the PyTorch port on the card: the strip SpMM kernel
 (csrc/spmm_sym.cu) on a range-aided Q, the block-tridiagonal (BTD)
-preconditioner's CUDA graph against its plain loop, and the RA driver.
+preconditioner's kernel (csrc/btd_solve.cu) against its plain loop, and
+the RA driver.
 
 Imports only torch, numpy and the port, so it also runs where JAX is not
 installed.  Every test needs a CUDA device and skips without one; on the
@@ -12,9 +13,9 @@ The kernel and BTD tests use an RA set of 200 poses, 85 unit spheres and 4
 landmarks, so the landmark section starts at scalar column 4 * 200 + 85 =
 885, inside a 4-column strip; the driver tests a 30-pose set at low noise.  Tolerances are relative to the reference's max: the kernel's as in
 tests/test_torch_spmm_cuda.py (1e-12 f64, 1e-5 f32, a different summation
-order); the BTD graph's 1e-10 in f64 and 1e-4 in f32 (the graph fuses each
-product with its subtraction, and the solve's 2 * nt dependent steps carry
-that rounding difference along).
+order); the BTD kernel's 1e-10 in f64 and 1e-4 in f32 (it sums each product
+in another order than the loop's matmuls, and the solve's 2 * nt - 1
+dependent steps carry that rounding difference along).
 """
 
 import pytest
@@ -96,11 +97,12 @@ def test_kernel_on_ra_tiles_matches_plain(problem, dtype, r_pad):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("r_pad", [8, 16])
-def test_btd_graph_matches_loop(problem, dtype, r_pad):
-    """The captured graph against the plain loop on the card and on the
-    CPU, on the same factors and input; a second replay with a new input
-    gives that input's solve."""
+@pytest.mark.parametrize("r_pad", [8, 16, 24])
+def test_btd_kernel_matches_loop(problem, dtype, r_pad):
+    """The BTD kernel (csrc/btd_solve.cu, one launch per application)
+    against the plain loop on the card and on the CPU, on the same factors
+    and input; a second call with a new input gives that input's solve,
+    and a repeated call the same bits."""
     TP = _tiled(problem, "cuda", dtype)
     TPc = _tiled(problem, "cpu", dtype)
     torch.testing.assert_close(TP.btd_ltil.cpu(), TPc.btd_ltil, rtol=0,
@@ -108,15 +110,75 @@ def test_btd_graph_matches_loop(problem, dtype, r_pad):
     gen = torch.Generator().manual_seed(r_pad)
     for _ in range(2):
         V = torch.randn((r_pad, TP.meta.kpad), generator=gen, dtype=dtype)
+        before = tiled.btd_solve.launches
         Y = tiled.precondition_flat(TP, V.cuda())
-        assert (r_pad, dtype) in TP.btd_graphs
+        again = tiled.btd_solve(TP, V.cuda())
+        assert tiled.btd_solve.launches == before + 2
         loop = tiled._precondition_btd(TP, V.cuda())
         cpu = tiled._precondition_btd(TPc, V)
         torch.cuda.synchronize()
-        assert Y.is_cuda and Y.shape == V.shape
+        assert Y.is_cuda and Y.shape == V.shape and Y.dtype == dtype
+        assert bool(torch.isfinite(Y).all())
+        assert torch.equal(Y, again)
         assert _rel_err(Y, loop) <= BTD_RTOL[dtype]
         assert _rel_err(Y.cpu(), cpu) <= BTD_RTOL[dtype]
-    assert len(TP.btd_graphs) == 1
+
+
+def _band_problem(nt, dtype, seed):
+    """A stand-in TiledProblem over a random band of nt 128 x 128 blocks
+    (its sub-diagonal block nt // 2 zero for nt >= 3), factored by
+    tiled._factor_btd, on the CPU."""
+    import types
+
+    import numpy as np
+
+    T = 128
+    rng = np.random.default_rng(seed)
+    dense, trow, tcol = [], [], []
+    for i in range(nt):
+        A = rng.standard_normal((T, T)) / np.sqrt(T)
+        dense.append(A @ A.T + np.eye(T))
+        trow.append(i)
+        tcol.append(i)
+        if i:
+            L = 0.4 * rng.standard_normal((T, T)) / np.sqrt(T)
+            if nt >= 3 and i == nt // 2:
+                L[:] = 0.0
+            dense += [L, L.T]
+            trow += [i, i - 1]
+            tcol += [i - 1, i]
+    Lt, Sinv = tiled._factor_btd(np.stack(dense), np.array(trow),
+                                 np.array(tcol), nt, T, 0.1)
+    return types.SimpleNamespace(
+        meta=tiled.TiledMeta(d=3, n=0, l=0, b=0, T=T, nt=nt),
+        btd_ltil=torch.as_tensor(Lt, dtype=dtype),
+        btd_sinv=torch.as_tensor(Sinv, dtype=dtype), btd_layout=None)
+
+
+@pytest.mark.parametrize("nt", [1, 2, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_btd_kernel_short_bands(dtype, nt):
+    """One block, two, and seven with a zero sub-diagonal block (a broken
+    band), at r_pad 24: the kernel against the plain loop on the CPU,
+    bitwise repeatable; the panel layout of the factors is made once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    TPc = _band_problem(nt, dtype, seed=nt)
+    TP = _band_problem(nt, dtype, seed=nt)
+    TP.btd_ltil, TP.btd_sinv = TP.btd_ltil.cuda(), TP.btd_sinv.cuda()
+    V = torch.randn((24, nt * 128), generator=torch.Generator().manual_seed(
+        nt), dtype=dtype)
+    Y = tiled.btd_solve(TP, V.cuda())
+    layout = TP.btd_layout
+    again = tiled.btd_solve(TP, V.cuda())
+    torch.cuda.synchronize()
+    C = tiled.BTD_CLUSTER
+    assert TP.btd_layout is layout
+    assert all(p.is_cuda and p.shape == (nt, C, 128, 128 // C)
+               for p in layout)
+    assert torch.equal(Y, again)
+    assert _rel_err(Y.cpu(), tiled._precondition_btd(TPc, V)) <= \
+        BTD_RTOL[dtype]
 
 
 @pytest.mark.parametrize("max_inner", [3, 6])
@@ -175,8 +237,8 @@ def test_tcg_graph_matches_loop(problem, max_inner):
 def test_raslam_driver_on_card(small_path, monkeypatch, path):
     """The driver certifies on the card, its state stays there, and it
     reaches the CPU run's f* of the same file.  "tiled" lowers
-    FAST_PATH_MIN_POSES so the f32/f64 tile phases, the kernel and the
-    BTD graph run."""
+    FAST_PATH_MIN_POSES so the f32/f64 tile phases, the SpMM kernel and
+    the BTD kernel run."""
     from dcora_tpu_torch import solvers, staircase
     from dcora_tpu_torch.drivers.single_robot_raslam import run
 
@@ -191,3 +253,22 @@ def test_raslam_driver_on_card(small_path, monkeypatch, path):
     ref, _, _ = run(small_path, device="cpu", verbose=False)
     assert ref.certified and res.final_rank == ref.final_rank
     assert abs(res.f_final - ref.f_final) <= 1e-6 * abs(ref.f_final)
+
+
+def test_raslam_tile_phases_launch_btd_kernel(small_path, monkeypatch):
+    """The RA driver's tile phases apply the BTD preconditioner through
+    its kernel, and a TiledProblem keeps no CUDA graph of it."""
+    import dataclasses
+
+    from dcora_tpu_torch import solvers, staircase
+    from dcora_tpu_torch.drivers.single_robot_raslam import run
+
+    for mod in (solvers, staircase):
+        monkeypatch.setattr(mod, "FAST_PATH_MIN_POSES", 1)
+    spmm.reset_launches()
+    res, _, _ = run(small_path, device="cuda", verbose=False)
+    counts = spmm.launch_counts()
+    assert res.certified
+    assert counts["btd_solve"] > 0 and counts["spmm_sym"] > 0
+    names = {f.name for f in dataclasses.fields(tiled.TiledProblem)}
+    assert "btd_graphs" not in names and not hasattr(tiled, "BTDGraph")

@@ -1,5 +1,5 @@
 """The port's bench entry points (dcora_tpu_torch.tools.{spmm_bench,
-spmm_ab,hotloop_bench,bench,profile_slice}) on the CPU: what they can show
+spmm_ab,hotloop_bench,bench,profile_slice,btd_bench}) on the CPU: what they can show
 without a card.  Both read .g2o and .pyfg inputs (tools.common.load_graph),
 and report what Q holds (tools.common.q_stats).  Every
 backend that spmm_bench times computes the plain tile path's W (its plain
@@ -16,6 +16,7 @@ from dcora_tpu_torch import datasets
 from dcora_tpu_torch.io import read_g2o_file
 from dcora_tpu_torch.tools import (
     bench,
+    btd_bench,
     common,
     hotloop_bench,
     profile_slice,
@@ -69,7 +70,8 @@ def test_tools_refuse_without_cuda(tmp_path, monkeypatch):
     for call in (lambda: spmm_bench.run(path),
                  lambda: spmm_ab.run(str(tmp_path), str(tmp_path / "ab")),
                  lambda: hotloop_bench.run(path),
-                 lambda: bench.run(path)):
+                 lambda: bench.run(path),
+                 lambda: btd_bench.main([path])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
