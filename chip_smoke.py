@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the five kernel libraries from ``dcora_tpu_torch/csrc/`` (the three
-SpMM kernels, the edge path's deterministic segment sum and the
-block-tridiagonal preconditioner solve; one nvcc per source, all started
-together; ``-Xptxas -v``'s registers and spills are printed) and holds
+Builds the six kernel libraries from ``dcora_tpu_torch/csrc/`` (the three
+SpMM kernels, the edge path's deterministic segment sum, the
+block-tridiagonal preconditioner solve and the flat layout's per-pose ops;
+one nvcc per source, all started together; ``-Xptxas -v``'s registers and
+spills are printed) and holds
 every SpMM kernel against its plain PyTorch version on
 the card at the 10,648-pose grid's shapes, timed in turns with the library
 yardstick ``torch.sparse.mm`` on the same Q and beside the product's bound.
@@ -88,6 +89,14 @@ Before the RA solves the kernel phase also holds the strip kernel against
 its plain version on the ra10k Q, beside ``torch.sparse.mm`` and the bound;
 the BTD phase holds the preconditioner's kernel against its plain loop
 there (f32 and f64, r_pad 8, 16 and 24, two applications bitwise equal),
+the flat phase the two kernels of ``csrc/flat_ops.cu`` (``flat_rhess``:
+the Hessian's projection with its Weingarten term; ``flat_precond``: the
+per-pose Jacobi solve with the projection) against their plain versions
+on grid10k, ra10k and par_grid10k's stack of 8 agents (f32 and f64, r_pad
+8 and 16) and the flat tCG's CUDA graph bitwise against its iterations
+issued one by one (every flat tiled path replays it: the PGO, GNC, RA and
+g2o100k tile phases and the parallel tiled rounds, each of which must
+launch both kernels, or flat_rhess alone under BTD),
 and the tCG phase the edge path's tCG graph against its iterations issued
 one by one, and times one application or iteration of each.  The
 repeat phase holds the segment-sum kernel (``csrc/segment_sum.cu``) against
@@ -155,6 +164,19 @@ KERNELS = {
                       note="port's own kernel; replaces the lax.scans of "
                       "dcora_tpu/core/tiled.py:822 (XLA), not a Pallas "
                       "kernel"),
+    # the port's own kernels (one library, two kernels): they replace the
+    # XLA fusions of the JAX package's per-pose flat ops, not a Pallas
+    # kernel; the line's numbers are one flat tCG iteration's pair (a launch
+    # of each), with each kernel's own under "parts"
+    "flat_ops": dict(name="flat_ops", route="cuda",
+                     source="dcora_tpu_torch/csrc/flat_ops.cu",
+                     replaces="dcora_tpu/core/tiled.py:743",
+                     note="port's own kernels flat_rhess and flat_precond; "
+                     "replace the XLA fusions of tangent_project_flat "
+                     "(dcora_tpu/core/tiled.py:743), weingarten_setup / "
+                     "weingarten_apply (:772, :792) and precondition_flat "
+                     "(:860), not a Pallas kernel; ms, plain_ms and bound_ms "
+                     "are one launch of each at grid10k f32 r_pad 8"),
 }
 LIBRARY = "library"  # torch.sparse.mm on the full symmetric Q, CSR
 # relative to max|W|: a different summation order, plus f32 rounding
@@ -506,17 +528,184 @@ def btd_phase(torch, tps):
     return rows, checks
 
 
+def _flat_state(torch, tiled, meta, shape, rank, gen):
+    """A point on the flat manifold with zero rows from `rank` on, and two
+    random arrays with the same zero rows, at the tiles' dtype (the polar
+    factor taken in f64: a nearly singular random 3 x 3 block has none in
+    f32)."""
+    X0, V, E = (torch.randn(shape, generator=gen[0], dtype=torch.float64,
+                            device="cuda") for _ in range(3))
+    for A in (X0, V, E):
+        A[rank:] = 0.0
+    X = tiled.retract_flat(meta, torch.zeros_like(X0), X0)
+    return tuple(A.to(gen[1]).contiguous() for A in (X, V, E))
+
+
+def flat_phase(torch, path10k, tps_ra, pp10k):
+    """[flat] The two kernels of csrc/flat_ops.cu against their plain
+    versions on the card: flat_rhess (the Hessian's projection with the
+    Weingarten term; and its project-only and Gram modes, checked beside
+    it) and flat_precond (the per-pose Jacobi solve fused with the
+    projection), on grid10k (rank 5, per-pose Jacobi), ra10k (rank 3,
+    spheres and landmarks; the BTD solve, so flat_precond does not run
+    there) and par_grid10k's stack of 8 agents, in f32 and f64 at r_pad 8
+    and 16: within TOL of max|plain|, two launches bitwise equal, and at
+    r_pad 8 each timed per launch in turns with its plain version (CUDA
+    events) and on the device (profiler) beside its bound.  Then the flat
+    tCG through its CUDA graph against the same iterations issued one by
+    one, bitwise over 6 iterations with the Weingarten term (grid10k f64
+    and f32, ra10k f32, the stack f32), and the ms per iteration of both
+    over a 100-iteration solve (the Weingarten term left out, so no solve
+    stops early).  Returns (kernel rows, {problem: (graph ms, eager ms)
+    per iteration})."""
+    from dcora_tpu_torch.core import rtr, tiled
+    from dcora_tpu_torch.parallel.rbcd import (STACKED_FLAT,
+                                               build_stacked_tiled)
+    from dcora_tpu_torch.solvers import make_preconditioner
+    from dcora_tpu_torch.tools import common
+
+    g = common.load_graph(path10k, 5)
+    P = g.problem_data(device="cuda")
+    M = make_preconditioner(g, P)
+    problems = {}
+    for dtype in (torch.float32, torch.float64):
+        problems[("grid10k", dtype)] = (tiled.build_tiled(
+            P, g.dims, dtype=dtype, precond=M, tile_precond=False), 5,
+            rtr.FLAT_BACKEND)
+        problems[("ra10k", dtype)] = (tps_ra[dtype], 3, rtr.FLAT_BACKEND)
+        problems[("par_grid10k", dtype)] = (build_stacked_tiled(
+            pp10k, 0, pp10k.num_agents, dtype, "cuda"), 5, STACKED_FLAT)
+    rows, hbm = [], hbm_gbs(torch)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for (name, dtype), (TP, rank, be) in problems.items():
+        meta, dt = TP.meta, str(dtype).split(".")[-1]
+        A = pp10k.num_agents if be is STACKED_FLAT else 1
+        for r_pad in (8, 16):
+            shape = (r_pad, A, meta.kpad) if A > 1 else (r_pad, meta.kpad)
+            X, V, E = _flat_state(torch, tiled, meta, shape, rank,
+                                  (gen, dtype))
+            aux = tiled.weingarten_setup(meta, X, V)
+            aux_p = tiled._weingarten_setup_plain(meta, X, V)
+            HV = tiled.apply_tiled(TP, E)
+            cases = {
+                "flat_rhess": (
+                    lambda: tiled.flat_rhess(meta, X, HV, E, aux),  # noqa
+                    lambda: tiled._rhess_plain(meta, X, HV, E, aux)),
+                "flat_rhess tangent": (
+                    lambda: tiled.tangent_project_flat(meta, X, V),  # noqa
+                    lambda: tiled._tangent_project_plain(meta, X, V)),
+                "flat_rhess hess": (
+                    lambda: tiled.flat_rhess(meta, None, HV, E,  # noqa
+                                             aux, project=False),
+                    lambda: tiled._rhess_plain(meta, None, HV, E, aux,
+                                               project=False)),
+            }
+            if TP.btd_ltil is None:
+                cases["flat_precond"] = (
+                    lambda: tiled.flat_precond(TP, X, V),  # noqa: B023
+                    lambda: tiled._tangent_project_plain(  # noqa: B023
+                        meta, X, tiled._precondition_pose_plain(TP, V)))
+            errs = {"gram": max(
+                float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-300)
+                for a, b in zip(aux, aux_p) if b.numel())}
+            same = {"gram": all(torch.equal(a, b) for a, b in zip(aux, aux_p))}
+            for kname, (kern, plain) in cases.items():
+                out, again, ref = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                require(bool(torch.isfinite(out).all()),
+                        f"{kname} {name} {dt}: not finite")
+                err = float((out - ref).abs().max())
+                scale = float(ref.abs().max())
+                errs[kname] = err / scale
+                same[kname] = torch.equal(out, ref)
+                require(err <= TOL[dt] * scale, f"{kname} disagrees with "
+                        f"its plain version ({name}, {dt}, r_pad {r_pad}): "
+                        f"{err:.3e} > {TOL[dt]:.0e} * {scale:.3e}")
+                require(torch.equal(out, again), f"{kname} {name} {dt}: "
+                        "two launches differ")
+                require(not out[rank:].any(), f"{kname}: zero rows not zero")
+                if kname not in ("flat_rhess", "flat_precond") or r_pad != 8:
+                    continue
+                ms, plain_ms = common.time_turns_ms([kern, plain])
+                dev_ms = common.device_ms(kern)
+                bound = common.flat_bound_ms(kname, meta, r_pad, A, dtype,
+                                             hbm)
+                rows.append(dict(kernel=kname, problem=name, dtype=dt,
+                                 r_pad=r_pad, live=rank, max_abs_err=err,
+                                 ms=ms, plain_ms=plain_ms, device_ms=dev_ms,
+                                 library_ms=None, bound_ms=bound[0],
+                                 bound_by=bound[1]))
+                phase(f"[flat] {kname} {name} {dt} r_pad={r_pad} agents={A}"
+                      f": kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+                      f"{plain_ms:.4f} ms per launch (CUDA events, "
+                      f"{common.LAUNCHES} back to back, median of 3 turns), "
+                      f"bound {bound[0]:.4f} ms ({bound[1]}), "
+                      f"max_abs_err={err:.3e} (rel {err / scale:.2e})")
+            phase(f"[flat] {name} {dt} r_pad={r_pad}: rel err against the "
+                  "plain versions " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in errs.items())
+                  + "; bitwise the plain version's: " + ", ".join(
+                      f"{k} {v}" for k, v in same.items())
+                  + "; two launches bitwise equal")
+    # the flat tCG: graph against eager, bitwise, then timed
+    tcg = {}
+    for name, dtype in (("grid10k", torch.float64), ("grid10k", torch.float32),
+                        ("ra10k", torch.float32),
+                        ("par_grid10k", torch.float32)):
+        TP, rank, be = problems[(name, dtype)]
+        meta, dt = TP.meta, str(dtype).split(".")[-1]
+        A = pp10k.num_agents if be is STACKED_FLAT else 1
+        shape = (8, A, meta.kpad) if A > 1 else (8, meta.kpad)
+        X, _, _ = _flat_state(torch, tiled, meta, shape, rank, (gen, dtype))
+        egrad = tiled.egrad_flat(TP, X)
+        grad = be.tangent(TP, X, egrad)
+        radius = torch.full((A,) if A > 1 else (), 1e8, dtype=dtype,
+                            device="cuda")
+        short = rtr.TCGGraph(be, TP, None, 6)
+        runs = [rtr.truncated_cg(TP, X, grad, egrad, None, radius, 6, 1e-12,
+                                 1.0, be=be, graph=gr)
+                for gr in (short, None)]
+        steps = runs[0].inner_iters
+        require(torch.equal(steps, runs[1].inner_iters)
+                and bool((steps > 0).all()), f"flat tCG {name} {dt}: the "
+                f"graph ran {steps.tolist()} iterations, the loop "
+                f"{runs[1].inner_iters.tolist()}")
+        require(torch.equal(runs[0].eta, runs[1].eta)
+                and torch.equal(runs[0].Heta, runs[1].Heta),
+                f"flat tCG {name} {dt}: the graph and the loop differ")
+        zero = torch.zeros_like(X)
+        graph = rtr.TCGGraph(be, TP, None, 100)
+
+        def solve(gr, TP=TP, X=X, grad=grad, zero=zero, radius=radius,
+                  be=be):
+            return rtr.truncated_cg(TP, X, grad, zero, None, radius, 100,
+                                    1e-12, 1.0, be=be, graph=gr)
+
+        full = solve(graph).inner_iters
+        require(bool((full == 100).all())
+                and torch.equal(full, solve(None).inner_iters),
+                f"flat tCG {name} {dt}: the timed solves stopped early")
+        g_ms, e_ms = common.time_turns_ms(
+            [lambda: solve(graph), lambda: solve(None)], n=1)  # noqa: B023
+        tcg[f"{name} {dt}"] = (g_ms / 100, e_ms / 100)
+        phase(f"[flat tcg] {name} {dt} r_pad=8 agents={A}: graph "
+              f"{g_ms / 100:.4f} ms, eager {e_ms / 100:.4f} ms per iteration "
+              f"(100 iterations per solve, CUDA events, median of 3 turns); "
+              f"over {steps.max().item()} iterations with the Weingarten "
+              f"term the graph equals the loop bitwise; per replay "
+              f"{graph.per_replay}")
+    del problems
+    return rows, tcg
+
+
 def counting_products(tiled):
     """Wrap tiled.apply_tiled (every tile product of the solve goes through
-    it) to count products; returns (count holder, restore)."""
-    real, n = tiled.apply_tiled, [0]
+    it) to count products, those recorded in a tCG graph once per replay
+    (tools.common.count_products); returns (count holder, restore)."""
+    from dcora_tpu_torch.tools import common
 
-    def counted(TP, X):
-        n[0] += 1
-        return real(TP, X)
-
-    tiled.apply_tiled = counted
-    return n, lambda: setattr(tiled, "apply_tiled", real)
+    return common.count_products()
 
 
 def slice_phase(torch, name, path, ref):
@@ -2136,6 +2325,8 @@ def main() -> int:
         rows += ra_rows
         btd_rows, btd_checks = btd_phase(torch, tps)
         rows += btd_rows
+        flat_rows, _ = flat_phase(torch, paths["grid10k"], tps, pp10k)
+        rows += flat_rows
         del tps
         tcg_phase(torch, paths["ra10k"])
         rows += repeat_phase(torch, paths, mr, btd_checks)
@@ -2168,7 +2359,9 @@ def main() -> int:
                     spmm_tile=benched["spmm_symmetric"],
                     spmm_paired=paired["spmm_paired"],
                     segment_sum=sum(c["segment_sum"] for c in path_counts),
-                    btd_solve=sum(c["btd_solve"] for c in path_counts))
+                    btd_solve=sum(c["btd_solve"] for c in path_counts),
+                    flat_ops=sum(c["flat_rhess"] + c["flat_precond"]
+                                 for c in path_counts))
     phase("[launches] spmm_sym per path: " + ", ".join(
         [f"pgo {counts['spmm_sym']}", f"gnc2500 {gnc_counts['spmm_sym']}",
          f"gnc agent init {agent_counts['spmm_sym']}"]
@@ -2178,7 +2371,17 @@ def main() -> int:
            f"g2o100k {g2o_counts['spmm_sym']}"]))
     require(all(c["btd_solve"] > 0 for c, _ in ra.values()),
             "an RA path never launched the BTD kernel")
-    for kern in ("segment_sum", "btd_solve"):
+    # every flat tiled path runs flat_rhess in each tCG iteration; those on
+    # the per-pose Jacobi (PGO, the GNC, the parallel grid, g2o100k) also
+    # flat_precond
+    flat_paths = dict(pgo=counts, gnc2500=gnc_counts,
+                      par_grid10k=par_counts, g2o100k=g2o_counts,
+                      **{k: c for k, (c, _) in ra.items()})
+    for k, c in flat_paths.items():
+        require(c["flat_rhess"] > 0, f"{k} never launched flat_rhess: {c}")
+        require(c["flat_precond"] > 0 or k in ra,
+                f"{k} never launched flat_precond: {c}")
+    for kern in ("segment_sum", "btd_solve", "flat_rhess", "flat_precond"):
         phase(f"[launches] {kern} per path: " + ", ".join(
             f"{k} {c[kern]}" for k, c in zip(path_names, path_counts)))
     main_dtype = dict(spmm_sym="float64", spmm_tile="float32",
@@ -2192,6 +2395,19 @@ def main() -> int:
         elif name == "btd_solve":  # the RA f32 tile phase's application
             main_row = next(r for r in mine if r["dtype"] == "float32"
                             and r["r_pad"] == 8)
+        elif name == "flat_ops":  # grid10k's f32 tile phase: one of each
+            parts = {k: next(r for r in rows if r["kernel"] == k
+                             and r["problem"] == "grid10k"
+                             and r["dtype"] == "float32" and r["r_pad"] == 8)
+                     for k in ("flat_rhess", "flat_precond")}
+            mine = [r for r in rows if r["kernel"] in parts]
+            main_row = {k: sum(p[k] for p in parts.values())
+                        for k in ("ms", "plain_ms", "bound_ms")}
+            main_row.update(bound_by="bytes", library_ms=None)
+            meta = dict(meta, parts={k: {f: p[f] for f in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
+                for k, p in parts.items()}, launches_each={
+                k: sum(c[k] for c in path_counts) for k in parts})
         else:
             main_row = next(r for r in mine
                             if r["dtype"] == main_dtype[name]

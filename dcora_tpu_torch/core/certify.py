@@ -183,8 +183,8 @@ def minimum_eigen_pair(P: ProblemData, C: Certificate, dims: ProblemDims,
 
 # --------------------------------------------------------------------------
 # Flat tiled Lanczos: the S matvec in the flat basis is apply_tiled minus
-# weingarten_apply; it runs the SpMM kernel at the tile dtype with one live
-# row of an r_pad = 8 operand.
+# the Weingarten term (flat_rhess without the projection); it runs the SpMM
+# kernel at the tile dtype with one live row of an r_pad = 8 operand.
 # --------------------------------------------------------------------------
 
 
@@ -196,7 +196,8 @@ def _lanczos_extreme_flat(TP, aux, shift, v0: torch.Tensor, m: int,
     def mv(v):
         V = torch.zeros((r_pad, kpad), dtype=v.dtype, device=v.device)
         V[0] = v
-        W = tiled.apply_tiled(TP, V) - tiled.weingarten_apply(TP.meta, V, aux)
+        W = tiled.flat_rhess(TP.meta, None, tiled.apply_tiled(TP, V), V,
+                             aux, project=False)
         return W[0] + shift * v
 
     alphas, betas, basis = _lanczos(mv, v0, m, 1e-7, generator)

@@ -7,7 +7,8 @@ use with ``nvcc`` into ``dcora_tpu_torch/build/`` and loaded with ctypes;
 started together.  Nothing is compiled or loaded on import.  The wrappers
 live in ``core/spmm.py`` (the SpMM kernels), ``core/segment.py`` (the
 edge path's segment sum) and ``core/tiled.py`` (the block-tridiagonal
-preconditioner solve); each imports this module.
+preconditioner solve and the flat layout's per-pose ops, two kernels of
+``csrc/flat_ops.cu``); each imports this module.
 
 Each wrapper counts its launches (:func:`count_launch`,
 :func:`launch_counts`).  A launch issued while a CUDA graph is being
@@ -138,6 +139,9 @@ _SOURCES = {
     "btd_solve": ({s: [_P] * 5 + [_I] * 2 + [_P]
                    for s in ("dcora_btd_solve_f32", "dcora_btd_solve_f64")},
                   [], []),
+    "flat_ops": ({f"dcora_{k}_{t}": [_P] * 2
+                  for k in ("flat_rhess", "flat_precond")
+                  for t in ("f32", "f64")}, [], []),
 }
 _LIBRARIES: Dict[str, _Library] = {}
 _LIBRARIES_LOCK = threading.Lock()
@@ -164,14 +168,16 @@ def build_all() -> Dict[str, _Library]:
     return libs
 
 
-def entry(lib: str, dtype: torch.dtype):
-    """The C entry point of `lib` for `dtype` (float32 or float64), looked
-    up once."""
-    fn = _ENTRIES.get((lib, dtype))
+def entry(lib: str, dtype: torch.dtype, kernel: str = ""):
+    """The C entry point dcora_<kernel>_<f32|f64> of `lib` (kernel defaults
+    to the library's name) for `dtype` (float32 or float64), looked up
+    once."""
+    kernel = kernel or lib
+    fn = _ENTRIES.get((kernel, dtype))
     if fn is None:
         suffix = "f32" if dtype == torch.float32 else "f64"
-        fn = getattr(library(lib).get(), f"dcora_{lib}_{suffix}")
-        _ENTRIES[(lib, dtype)] = fn
+        fn = getattr(library(lib).get(), f"dcora_{kernel}_{suffix}")
+        _ENTRIES[(kernel, dtype)] = fn
     return fn
 
 
@@ -192,7 +198,7 @@ def check_launch(name: str, err: int):
 # --------------------------------------------------------------------------
 
 KERNELS = ("spmm_sym", "spmm_symmetric", "spmm_paired", "segment_sum",
-           "btd_solve")
+           "btd_solve", "flat_rhess", "flat_precond")
 _WRAPPERS: Dict[str, object] = {}
 
 

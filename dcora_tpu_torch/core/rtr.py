@@ -11,7 +11,8 @@ The solver is generic over the state representation through a *backend*:
     exact residual-form numerics.
   * ``FLAT_BACKEND`` -- flat [r_pad, kpad] tensors over the RCM-tiled
     scalar ordering (tiled.py); every Q product goes through the SpMM
-    kernel.
+    kernel, and the per-pose ops of the Hessian and the preconditioner
+    through csrc/flat_ops.cu (tiled.flat_rhess, tiled.flat_precond).
 
 The Riemannian Hessian uses the Weingarten-corrected form for embedded
 Stiefel/oblique submanifolds,
@@ -23,9 +24,9 @@ The JAX ``lax.while_loop``s become Python loops.  The tCG inner loop never
 waits for the device: its state updates are masked once it has converged,
 and the host learns of convergence through a non-blocking probe
 (:class:`_DoneProbe`), so it stops issuing iterations a few steps late at
-most, and those steps change nothing.  On the card the edge path's
-iterations replay a CUDA graph (:class:`TCGGraph`).  The outer loop reads
-one flag per iteration.
+most, and those steps change nothing.  On the card the iterations of the
+edge path and of the flat backends replay a CUDA graph (:class:`TCGGraph`).
+The outer loop reads one flag per iteration.
 
 The one-accepted-step mode of RBCD (``RTRConfig.single_accepted_step``;
 QuadraticOptimizer.cpp:253-273) shrinks the radius by 4 after each try, up
@@ -165,6 +166,12 @@ class _RABackend:
         return RAState(rot=torch.einsum("nrd,nde->nre", eta.rot, S),
                        sph=eta.sph * s_inner, trn=torch.zeros_like(eta.trn))
 
+    def rhess(self, P, X, eta, aux):
+        """The Riemannian Hessian P_X(Q eta - W(eta)) from its parts."""
+        H = tmap(torch.sub, self.hessvec(P, eta),
+                 self.weingarten(P, X, eta, aux))
+        return self.tangent(P, X, H)
+
     def precond(self, P, M, X, V):
         if M is None:
             return V  # V is already tangent
@@ -187,21 +194,19 @@ class _FlatBackend:
     def applyQ(self, P, X):
         return tiled.apply_tiled(P, X)
 
-    def hessvec(self, P, V):
-        return tiled.apply_tiled(P, V)
-
     def tangent(self, P, X, V):
         return tiled.tangent_project_flat(P.meta, X, V)
 
     def hess_setup(self, P, X, egrad):
         return tiled.weingarten_setup(P.meta, X, egrad)
 
-    def weingarten(self, P, X, eta, aux):
-        return tiled.weingarten_apply(P.meta, eta, aux)
+    def rhess(self, P, X, eta, aux):
+        """P_X(Q eta - W(eta)): the SpMM, then one flat_rhess pass."""
+        return tiled.flat_rhess(P.meta, X, tiled.apply_tiled(P, eta), eta,
+                                aux)
 
     def precond(self, P, M, X, V):
-        return tiled.tangent_project_flat(P.meta, X,
-                                          tiled.precondition_flat(P, V))
+        return tiled.precond_project(P, X, V)
 
     def retract(self, P, X, V):
         return tiled.retract_flat(P.meta, X, V)
@@ -213,11 +218,6 @@ FLAT_BACKEND = _FlatBackend()
 
 def riemannian_gradient(P, X: RAState, G: Optional[RAState]) -> RAState:
     return tangent_project(X, prob.euclidean_gradient(P, X, G))
-
-
-def _rhess(be, P, X, eta, aux):
-    H = tmap(torch.sub, be.hessvec(P, eta), be.weingarten(P, X, eta, aux))
-    return be.tangent(P, X, H)
 
 
 class _DoneProbe:
@@ -296,7 +296,7 @@ def _tcg_step(be, P, M, X, aux, radius, stop_tol, max_inner: int,
     (be.agent_dim set) every scalar and flag is one per agent."""
     ax = be.agent_dim
     eta, Heta, r, z, d, rz, it, done = s
-    Hd = _rhess(be, P, X, d, aux)
+    Hd = be.rhess(P, X, d, aux)
     dHd = tvdot(d, Hd, ax)
     alpha = rz / torch.where(dHd == 0, torch.ones_like(dHd), dHd)
     eta_next = taxpy(alpha, d, eta, ax)
@@ -339,17 +339,21 @@ def _unflatten(like, leaves) -> list:
 
 
 class TCGGraph:
-    """STEPS tCG iterations of the edge path captured once per RTR call as
-    a CUDA graph and replayed until the solve converges.
+    """STEPS tCG iterations captured once as a CUDA graph and replayed
+    until the solve converges: on the edge path once per RTR call, on the
+    flat tiled backends once per TiledProblem, state shape and max_inner
+    (tcg_graph).
 
     Issued from Python, one iteration on the range-aided edge path is ~200
-    small kernels whose host issue time exceeds their device time.  Every
-    update of an iteration is masked (_tcg_step), so the iterations need no
-    host decision and can be recorded once.  The graph reads its inputs
+    small kernels whose host issue time exceeds their device time (~150 on
+    the flat backend).  Every update of an iteration is masked
+    (_tcg_step), so the iterations need no host decision and can be
+    recorded once.  The graph reads its inputs
     (X, the Weingarten terms, radius, the stopping tolerance) from static
     buffers and writes the tCG state back into its own static buffers;
     `load` copies an outer iteration's values in.  The kernel launches it
-    records (the segment sums of apply_Q) count once per replay."""
+    records (the segment sums of apply_Q; the SpMM, the BTD solve and the
+    flat ops) count once per replay."""
 
     STEPS = 4
 
@@ -403,6 +407,21 @@ class TCGGraph:
         self.graph.replay()
         kernels.add_replays(self.per_replay)
         return self.state[-1]
+
+
+def tcg_graph(be, TP, X: torch.Tensor, max_inner: int
+              ) -> Optional[TCGGraph]:
+    """The TCGGraph of a flat tiled backend's tCG on TiledProblem TP at X's
+    shape and dtype and max_inner, captured at its first replay and kept on
+    TP (TP.tcg_graphs), so the chunks of one tile phase and the tries of a
+    parallel round share it; None off the card."""
+    if not X.is_cuda:
+        return None
+    key = (type(be).__name__, tuple(X.shape), X.dtype, max_inner)
+    graph = TP.tcg_graphs.get(key)
+    if graph is None:
+        graph = TP.tcg_graphs[key] = TCGGraph(be, TP, None, max_inner)
+    return graph
 
 
 def _all(flag: torch.Tensor) -> torch.Tensor:
@@ -471,9 +490,10 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
     """Riemannian trust region from X0 until gradnorm < cfg.gradnorm_tol or
     cfg.max_outer outer iterations.  One host sync per outer iteration.
 
-    On the card the edge path's tCG replays `graph` (a TCGGraph over the
-    same P, M and cfg.max_inner, kept by a caller that solves the same
-    problem many times), or one captured for this call."""
+    On the card the tCG replays `graph` (a TCGGraph over the same P, M
+    and cfg.max_inner, kept by a caller that solves the same problem many
+    times), or, on the edge path, one captured for this call, on the flat
+    backend the one kept on the TiledProblem (tcg_graph)."""
     lead = _leaves(X0)[0]
     max_radius = cfg.initial_radius * cfg.max_radius_factor
     radius = torch.as_tensor(cfg.initial_radius if radius0 is None
@@ -490,12 +510,13 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         return W if G is None else tadd(W, G)
 
     eps = torch.finfo(lead.dtype).eps
-    # the edge path's tCG iterations replay a CUDA graph on the card; the
-    # flat backend's kernel wrappers count their launches and stay eager
-    if not (lead.is_cuda and be is RA_BACKEND):
+    # the tCG iterations of the edge path and the flat backend replay a
+    # CUDA graph on the card
+    if not (lead.is_cuda and be in (RA_BACKEND, FLAT_BACKEND)):
         graph = None
     elif graph is None:
-        graph = TCGGraph(be, P, M, cfg.max_inner)
+        graph = TCGGraph(be, P, M, cfg.max_inner) if be is RA_BACKEND \
+            else tcg_graph(be, P, lead, cfg.max_inner)
 
     def try_step(X, W, radius):
         """One trust-region step proposal."""

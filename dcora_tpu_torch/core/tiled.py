@@ -34,6 +34,7 @@ tile-list pre-padding (an XLA temp-memory workaround).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 from typing import NamedTuple, Optional
@@ -139,6 +140,14 @@ class TiledProblem:
     # (_btd_layout), made at the first application on the card
     btd_layout: Optional[tuple] = dataclasses.field(default=None,
                                                     repr=False)
+    # the Jacobi inverses (pose_inv, sph_inv, lmk_inv) per dtype, contiguous
+    # (_jacobi); and the tCG's CUDA graphs on this problem
+    # (rtr.tcg_graph), kept across RTR calls.  Neither is carried over by
+    # dataclasses.replace.
+    jacobi: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False)
+    tcg_graphs: dict = dataclasses.field(default_factory=dict, init=False,
+                                         repr=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -567,18 +576,25 @@ def _sph(meta: TiledMeta, Xf: torch.Tensor) -> torch.Tensor:
     return Xf[..., meta.pose_end:meta.sph_end]
 
 
+# The per-pose Riemannian ops.  On the card each is a launch of
+# csrc/flat_ops.cu: flat_rhess (the projection, with the Weingarten term and
+# the Gram of weingarten_setup) and flat_precond (the per-pose block-Jacobi
+# solve and the projection in one pass).  Their plain versions below are
+# the einsum code over the [r, n, dh] view; the CPU path and the tests run
+# them, nothing on the card does.
+
+
 def _sym_gram(meta: TiledMeta, Xf: torch.Tensor, Vf: torch.Tensor):
-    """sym(Y_i^T V_i) per pose as [n, d, d]."""
+    """sym(Y_i^T V_i) per pose as [n, d, d] ([A, n, d, d] of a stack)."""
     d = meta.d
     S = torch.einsum("r...na,r...nb->...nab", _pose3(meta, Xf)[..., :d],
                      _pose3(meta, Vf)[..., :d])
     return 0.5 * (S + S.transpose(-1, -2))
 
 
-def tangent_project_flat(meta: TiledMeta, Xf: torch.Tensor,
-                         Vf: torch.Tensor) -> torch.Tensor:
-    """V - Y sym(Y^T V) on Stiefel blocks; sphere de-projection; id on R
-    (flat-layout manifold.tangent_project)."""
+def _tangent_project_plain(meta: TiledMeta, Xf: torch.Tensor,
+                           Vf: torch.Tensor) -> torch.Tensor:
+    """V - Y sym(Y^T V) on Stiefel blocks; sphere de-projection; id on R."""
     d = meta.d
     out = Vf.clone()
     _pose3(meta, out)[..., :d] -= torch.einsum(
@@ -590,20 +606,16 @@ def tangent_project_flat(meta: TiledMeta, Xf: torch.Tensor,
     return out
 
 
-def weingarten_setup(meta: TiledMeta, Xf: torch.Tensor, egrad: torch.Tensor):
-    """Constants of the Weingarten map for a fixed egrad: sym(Y^T egrad)
-    [n, d, d] and the sphere inner products [1, l] (None without spheres).
-    egrad is fixed during a tCG solve, so this runs once per outer
-    iteration."""
-    s_inner = None
-    if meta.l:
-        s_inner = (_sph(meta, Xf) * _sph(meta, egrad)).sum(0, keepdim=True)
+def _weingarten_setup_plain(meta: TiledMeta, Xf: torch.Tensor,
+                            egrad: torch.Tensor):
+    s_inner = (_sph(meta, Xf) * _sph(meta, egrad)).sum(0, keepdim=True)
     return _sym_gram(meta, Xf, egrad), s_inner
 
 
 def weingarten_apply(meta: TiledMeta, eta: torch.Tensor, aux
                      ) -> torch.Tensor:
-    """Apply the precomputed Weingarten constants to a tangent vector."""
+    """Apply the precomputed Weingarten constants to a tangent vector (the
+    plain version: on the card flat_rhess applies them)."""
     Ssym, s_inner = aux
     d = meta.d
     out = torch.zeros_like(eta)
@@ -614,12 +626,211 @@ def weingarten_apply(meta: TiledMeta, eta: torch.Tensor, aux
     return out
 
 
+def _rhess_plain(meta: TiledMeta, Xf, HV, eta, aux, project=True):
+    H = HV if eta is None else HV - weingarten_apply(meta, eta, aux)
+    return _tangent_project_plain(meta, Xf, H) if project else H
+
+
+_FLAT_ARGS = ctypes.c_int64 * 19  # csrc/flat_ops.cu's FlatArgs
+
+
+def _check_flat(name: str, meta: TiledMeta, *arrays):
+    """The flat operands a kernel of flat_ops.cu takes: one float dtype,
+    [r_pad, kpad] or a stack's [r_pad, A, kpad] alike, contiguous, on one
+    CPU or CUDA device; d at most 3 and the sections inside kpad.  None
+    entries are absent operands."""
+    first = next(a for a in arrays if a is not None)
+    if not 1 <= meta.d <= 3 or meta.sph_end + meta.b > meta.kpad:
+        raise ValueError(f"{name}: layout d={meta.d}, k={meta.k}, "
+                         f"kpad={meta.kpad} is not one the kernel takes")
+    if first.dim() not in (2, 3) or first.shape[-1] != meta.kpad or \
+            first.shape[0] < 1:
+        raise ValueError(f"{name}: shape {tuple(first.shape)} is not "
+                         f"[r_pad, kpad] or [r_pad, A, kpad] with kpad "
+                         f"{meta.kpad}")
+    for a in arrays:
+        if a is None:
+            continue
+        if a.dtype not in (torch.float32, torch.float64) or \
+                a.dtype != first.dtype:
+            raise TypeError(f"{name}: operands {a.dtype} and {first.dtype} "
+                            "must share float32 or float64")
+        if a.shape != first.shape:
+            raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
+                             f"{tuple(first.shape)} differ")
+        if not a.is_contiguous():
+            raise ValueError(f"{name}: an operand is not contiguous")
+        if a.device != first.device:
+            raise ValueError(f"{name}: operands on {a.device} and "
+                             f"{first.device}")
+    if first.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    return first
+
+
+def _check_leaf(name: str, what: str, a: torch.Tensor, like: torch.Tensor,
+                shape: tuple):
+    """A per-pose / per-column constant: the flat operand's dtype and
+    device, the given shape, contiguous."""
+    if a.dtype != like.dtype:
+        raise TypeError(f"{name}: {what} is {a.dtype}, the operands "
+                        f"{like.dtype}")
+    if tuple(a.shape) != shape or not a.is_contiguous() or \
+            a.device != like.device:
+        raise ValueError(f"{name}: {what} is {tuple(a.shape)} on "
+                         f"{a.device}, not a contiguous {shape} on "
+                         f"{like.device}")
+
+
+def _lead(X: torch.Tensor) -> tuple:
+    """() for one problem, (A,) for a stack."""
+    return tuple(X.shape[1:-1])
+
+
+def _launch_flat(kernel: str, X: torch.Tensor, args):
+    fn = kernels.entry("flat_ops", X.dtype, kernel)
+    desc = _FLAT_ARGS(*args)  # alive until the call has read it
+    if X.device.index == torch.cuda.current_device():
+        err = fn(ctypes.addressof(desc), kernels.stream(X))
+    else:
+        with torch.cuda.device(X.device):
+            err = fn(ctypes.addressof(desc), kernels.stream(X))
+    kernels.check_launch(kernel, err)
+
+
+def _ptr(a: Optional[torch.Tensor]) -> int:
+    return 0 if a is None else a.data_ptr()
+
+
+def _sizes(meta: TiledMeta, X: torch.Tensor, project: bool = True):
+    return (meta.n, meta.l, meta.b, meta.d, meta.kpad,
+            X.shape[1] if X.dim() == 3 else 1, X.shape[0], int(project))
+
+
+@kernels.counted
+def flat_rhess(meta: TiledMeta, Xf: Optional[torch.Tensor],
+               HV: torch.Tensor, eta: Optional[torch.Tensor] = None,
+               aux=None, project: bool = True) -> torch.Tensor:
+    """P_X(HV - W(eta)) in one pass: the Riemannian Hessian of the flat
+    tCG from HV = apply_tiled(TP, eta) and weingarten_setup's aux =
+    (Ssym, s_inner); eta None is tangent_project_flat (no Weingarten term);
+    project False leaves out the projection (Xf may then be None) and
+    returns HV - W(eta).  A CUDA HV launches csrc/flat_ops.cu's flat_rhess
+    or raises; a CPU HV runs the plain version."""
+    first = _check_flat("flat_rhess", meta, Xf, HV, eta)
+    if project and Xf is None:
+        raise ValueError("flat_rhess: the projection needs X")
+    if eta is not None:
+        Ssym, s_inner = aux
+        lead = _lead(first)
+        _check_leaf("flat_rhess", "Ssym", Ssym, first,
+                    lead + (meta.n, meta.d, meta.d))
+        _check_leaf("flat_rhess", "s_inner", s_inner, first,
+                    (1,) + lead + (meta.l,))
+    if first.device.type == "cpu":
+        return _rhess_plain(meta, Xf, HV, eta, aux, project)
+    out = torch.empty_like(HV)
+    Ssym, s_inner = aux if eta is not None else (None, None)
+    _launch_flat("flat_rhess", first, (
+        _ptr(Xf), HV.data_ptr(), _ptr(eta), _ptr(Ssym), _ptr(s_inner),
+        0, 0, 0, out.data_ptr(), 0, 0, *_sizes(meta, first, project)))
+    kernels.count_launch(flat_rhess)
+    return out
+
+
+def tangent_project_flat(meta: TiledMeta, Xf: torch.Tensor,
+                         Vf: torch.Tensor) -> torch.Tensor:
+    """V - Y sym(Y^T V) on Stiefel blocks; sphere de-projection; id on R
+    (flat-layout manifold.tangent_project): flat_rhess without the
+    Weingarten term."""
+    return flat_rhess(meta, Xf, Vf)
+
+
+def weingarten_setup(meta: TiledMeta, Xf: torch.Tensor, egrad: torch.Tensor):
+    """Constants of the Weingarten map for a fixed egrad: sym(Y^T egrad)
+    [n, d, d] and the sphere inner products [1, l] ([A, n, d, d] and [1,
+    A, l] of a stack; l may be 0).  egrad is fixed during a tCG solve, so
+    this runs once per outer iteration.  On the card it is one launch of
+    flat_rhess that writes the Grams and no projection."""
+    first = _check_flat("weingarten_setup", meta, Xf, egrad)
+    if first.device.type == "cpu":
+        return _weingarten_setup_plain(meta, Xf, egrad)
+    lead = _lead(first)
+    Ssym = torch.empty(lead + (meta.n, meta.d, meta.d), dtype=first.dtype,
+                       device=first.device)
+    s_inner = torch.empty((1,) + lead + (meta.l,), dtype=first.dtype,
+                          device=first.device)
+    _launch_flat("flat_rhess", first, (
+        Xf.data_ptr(), egrad.data_ptr(), 0, 0, 0, 0, 0, 0, 0,
+        Ssym.data_ptr(), _ptr(s_inner) if meta.l else 0,
+        *_sizes(meta, first)))
+    kernels.count_launch(flat_rhess)
+    return Ssym, s_inner
+
+
+def _jacobi(TP: TiledProblem, dtype: torch.dtype):
+    """(pose_inv, sph_inv, lmk_inv) at `dtype`, contiguous, made once per
+    dtype and kept on TP."""
+    got = TP.jacobi.get(dtype)
+    if got is None:
+        got = TP.jacobi[dtype] = tuple(
+            a.to(dtype).contiguous()
+            for a in (TP.pose_inv, TP.sph_inv, TP.lmk_inv))
+    return got
+
+
+def _precondition_pose_plain(TP: TiledProblem, Vf: torch.Tensor
+                             ) -> torch.Tensor:
+    """The per-pose (dh x dh) block-Jacobi solve: the plain version."""
+    meta = TP.meta
+    pose_inv, sph_inv, lmk_inv = _jacobi(TP, Vf.dtype)
+    out = Vf.clone()
+    _pose3(meta, out)[:] = torch.einsum(
+        "r...nc,...nce->r...ne", _pose3(meta, Vf), pose_inv)
+    if meta.l:
+        _sph(meta, out)[:] = _sph(meta, Vf) * sph_inv
+    if meta.b:
+        lm = out[..., meta.sph_end:meta.sph_end + meta.b]
+        lm *= lmk_inv
+    return out
+
+
+@kernels.counted
+def flat_precond(TP: TiledProblem, Xf: torch.Tensor,
+                 Vf: torch.Tensor) -> torch.Tensor:
+    """P_X(M^{-1} V) for the per-pose block-Jacobi preconditioner in one
+    pass.  The inverses must have V's dtype (the tile dtype) and device.  A
+    CUDA V launches csrc/flat_ops.cu's flat_precond or raises; a CPU V runs
+    the plain version."""
+    meta = TP.meta
+    first = _check_flat("flat_precond", meta, Xf, Vf)
+    if TP.pose_inv.dtype != first.dtype:
+        raise TypeError(f"flat_precond: V is {first.dtype}, the "
+                        f"preconditioner {TP.pose_inv.dtype}")
+    pose_inv, sph_inv, lmk_inv = _jacobi(TP, first.dtype)
+    lead = _lead(first)
+    _check_leaf("flat_precond", "pose_inv", pose_inv, first,
+                lead + (meta.n, meta.dh, meta.dh))
+    _check_leaf("flat_precond", "sph_inv", sph_inv, first, lead + (meta.l,))
+    _check_leaf("flat_precond", "lmk_inv", lmk_inv, first, lead + (meta.b,))
+    if first.device.type == "cpu":
+        return _tangent_project_plain(meta, Xf,
+                                      _precondition_pose_plain(TP, Vf))
+    out = torch.empty_like(Vf)
+    _launch_flat("flat_precond", first, (
+        Xf.data_ptr(), Vf.data_ptr(), 0, 0, 0, pose_inv.data_ptr(),
+        _ptr(sph_inv), _ptr(lmk_inv), out.data_ptr(), 0, 0,
+        *_sizes(meta, first)))
+    kernels.count_launch(flat_precond)
+    return out
+
+
 def _precondition_tiles(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
     """Tile-granularity block-Jacobi: one batched [nt, T, T] product."""
     meta = TP.meta
     V3 = Vf.reshape(*Vf.shape[:-1], meta.nt, meta.T)
     W = torch.einsum("r...ct,...cts->r...cs", V3, TP.diag_inv.to(Vf.dtype))
-    return W.reshape(Vf.shape)
+    return W.reshape(Vf.shape).contiguous()  # a stack's comes permuted
 
 
 def _precondition_btd(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
@@ -718,21 +929,23 @@ def precondition_flat(TP: TiledProblem, Vf: torch.Tensor) -> torch.Tensor:
     """Block-Jacobi solve in flat layout (cf. prob.apply_preconditioner):
     block-tridiagonal with TP.btd_ltil (btd_solve: its kernel on the card,
     the plain loop on the CPU), tile-granularity with TP.diag_inv, per-pose
-    (dh x dh) blocks otherwise."""
+    (dh x dh) blocks otherwise (the plain version; the tCG takes it fused
+    with the projection, flat_precond)."""
     if TP.btd_ltil is not None:
         return btd_solve(TP, Vf)
     if TP.diag_inv is not None:
         return _precondition_tiles(TP, Vf)
-    meta = TP.meta
-    out = Vf.clone()
-    _pose3(meta, out)[:] = torch.einsum(
-        "r...nc,...nce->r...ne", _pose3(meta, Vf), TP.pose_inv.to(Vf.dtype))
-    if meta.l:
-        _sph(meta, out)[:] = _sph(meta, Vf) * TP.sph_inv.to(Vf.dtype)
-    if meta.b:
-        lm = out[..., meta.sph_end:meta.sph_end + meta.b]
-        lm *= TP.lmk_inv.to(Vf.dtype)
-    return out
+    return _precondition_pose_plain(TP, Vf)
+
+
+def precond_project(TP: TiledProblem, Xf: torch.Tensor,
+                    Vf: torch.Tensor) -> torch.Tensor:
+    """P_X(M^{-1} V), the tCG's preconditioner: per-pose block-Jacobi
+    fused with the projection (flat_precond); the BTD or the tile solve
+    (precondition_flat), then the projection (flat_rhess)."""
+    if TP.btd_ltil is None and TP.diag_inv is None:
+        return flat_precond(TP, Xf, Vf)
+    return tangent_project_flat(TP.meta, Xf, precondition_flat(TP, Vf))
 
 
 def retract_flat(meta: TiledMeta, Xf: torch.Tensor,

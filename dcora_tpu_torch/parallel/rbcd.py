@@ -55,6 +55,7 @@ from dcora_tpu_torch.core.rtr import (
     _FlatBackend,
     _RABackend,
     rtr_stacked,
+    tcg_graph,
 )
 from dcora_tpu_torch.core.spmm import BLOCK, StripCSR
 from dcora_tpu_torch.types import ProblemDims, StateType
@@ -683,7 +684,11 @@ class ParallelRound:
         r_pad = max(8, -(-r // 8) * 8)
         Xf = stack_to_flat(self.TP, X, r_pad).to(dt)
         Gf = stack_to_flat(self.TP, G, r_pad).to(dt)
-        res = rtr_stacked(self.TP, Gf, None, Xf, self.cfg, STACKED_FLAT)
+        # on the card the tCG replays a CUDA graph kept on the stack's
+        # TiledProblem, one per r_pad
+        res = rtr_stacked(self.TP, Gf, None, Xf, self.cfg, STACKED_FLAT,
+                          graph=tcg_graph(STACKED_FLAT, self.TP, Xf,
+                                          self.cfg.max_inner))
         return (stack_from_flat(self.TP, res.X.to(X.rot.dtype), r),
                 res.gradnorm_final.to(X.rot.dtype))
 

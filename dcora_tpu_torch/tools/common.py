@@ -272,3 +272,83 @@ def btd_bound_ms(nt: int, T: int, r_pad: int, dtype: torch.dtype,
     ops_ms = 3.0 * nt * 2.0 * r_pad * T * T / PEAK_FLOPS[dtype] * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                             "operations")
+
+
+def flat_bound_ms(kernel: str, meta, r_pad: int, agents: int,
+                  dtype: torch.dtype, hbm_gbs: float) -> Tuple[float, str]:
+    """The least time one launch of a kernel of csrc/flat_ops.cu could take
+    on the card, and what sets it: the larger of its bytes over the HBM rate
+    and its operations over the peak FLOP/s outside the tensor cores.
+
+    flat_rhess (tiled.flat_rhess with the Weingarten term) reads X, HV and
+    eta ([r_pad, A kpad] each), Ssym [A, n, d, d] and s_inner [A, l] once
+    and writes one [r_pad, A kpad]; per row it does 3 d^2 multiply-adds on
+    each pose (the Weingarten term, the Gram, the projection) and 3 on each
+    sphere column.  flat_precond reads X, V, pose_inv [A, n, dh, dh],
+    sph_inv and lmk_inv once and writes one array; per row dh^2 + 2 d^2
+    multiply-adds on each pose, 3 on each sphere column and 1 on each
+    landmark."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    m = meta
+    flat = r_pad * agents * m.kpad
+    if kernel == "flat_rhess":
+        nbytes = 4 * flat + agents * (m.n * m.d * m.d + m.l)
+        fma = m.n * 3 * m.d * m.d + 3 * m.l
+    elif kernel == "flat_precond":
+        nbytes = 3 * flat + agents * (m.n * m.dh * m.dh + m.l + m.b)
+        fma = m.n * (m.dh * m.dh + 2 * m.d * m.d) + 3 * m.l + m.b
+    else:
+        raise ValueError(f"flat_bound_ms: unknown kernel {kernel!r}")
+    bytes_ms = nbytes * esize / (hbm_gbs * 1e6)
+    ops_ms = 2.0 * fma * r_pad * agents / PEAK_FLOPS[dtype] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                            "operations")
+
+
+def count_calls(module, name: str, key: Callable = lambda *args: 0):
+    """Count the calls of module.<name> by key(*args), as the kernels count
+    their launches: a call issued eagerly counts now, one recorded in a
+    CUDA graph (rtr.TCGGraph) once per replay of that graph.  Returns (a
+    collections.Counter, a function that undoes the patching)."""
+    from collections import Counter
+
+    from dcora_tpu_torch.core import rtr
+
+    real = getattr(module, name)
+    real_record, real_replay = rtr.TCGGraph._record, rtr.TCGGraph.replay
+    counts, captured, mine = Counter(), Counter(), object()
+
+    def call(*args):
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            captured[key(*args)] += 1
+        else:
+            counts[key(*args)] += 1
+        return real(*args)
+
+    def record(graph, body):
+        before = Counter(captured)
+        real_record(graph, body)
+        if not hasattr(graph, "counted_calls"):
+            graph.counted_calls = {}
+        graph.counted_calls[mine] = captured - before
+
+    def replay(graph):
+        counts.update(getattr(graph, "counted_calls", {}).get(mine, {}))
+        return real_replay(graph)
+
+    def restore():
+        setattr(module, name, real)
+        rtr.TCGGraph._record, rtr.TCGGraph.replay = real_record, real_replay
+
+    setattr(module, name, call)
+    rtr.TCGGraph._record, rtr.TCGGraph.replay = record, replay
+    return counts, restore
+
+
+def count_products():
+    """Count tile products (calls of tiled.apply_tiled; count_calls):
+    returns (a Counter whose [0] is the count, restore)."""
+    from dcora_tpu_torch.core import tiled
+
+    return count_calls(tiled, "apply_tiled")

@@ -5,13 +5,15 @@
 
 Counterpart of ``tools/hotloop_bench.py``.  On the f32 tiles of one graph
 (default: the generated 10,648-pose grid) it times each op of the tCG inner
-iteration -- the SpMM, ``tangent_project_flat``, ``precondition_flat``,
-``weingarten_apply``, the Hessian-vector chain, the dots and axpys,
-``retract_flat`` -- as CUDA-event ms per call over back-to-back calls
+iteration -- the SpMM, ``tangent_project_flat`` and the Hessian chain
+(``csrc/flat_ops.cu``'s flat_rhess), ``precond_project`` (its
+flat_precond), the dots and axpys, ``retract_flat`` -- as CUDA-event ms
+per call over back-to-back calls
 (device time; PyTorch issues each op eagerly, so a call also pays its host
 launch cost, which the sum of these does not show).  Then it times full
 ``rtr`` outer iterations on FLAT_BACKEND (50 tCG, no early stop) on the
-host clock.  ``--pack paired`` runs the SpMM on the two-row K-fused
+host clock (its tCG iterations replay the flat CUDA graph).  ``--pack
+paired`` runs the SpMM on the two-row K-fused
 buckets, ``bucketed`` on the owner-computes CSR kernel.  The JAX tool's
 planar variant has no counterpart: the planar layout is not ported.
 Refuses to run without CUDA.
@@ -60,14 +62,12 @@ def run(path: str, rank: int = 5, pack: str = "bucketed", outers: int = 10,
 
     ops = {
         "apply_tiled (SpMM)": lambda: tiled.apply_tiled(TP, V),
-        "tangent_project_flat": lambda: tiled.tangent_project_flat(
-            meta, Xf, V),
-        "precondition_flat": lambda: tiled.precondition_flat(TP, V),
-        "weingarten_apply": lambda: tiled.weingarten_apply(meta, V, aux),
-        "hessvec chain (SpMM + weingarten + tangent)": lambda:
-            tiled.tangent_project_flat(
-                meta, Xf, tiled.apply_tiled(TP, V)
-                - tiled.weingarten_apply(meta, V, aux)),
+        "tangent_project_flat (flat_rhess)": lambda:
+            tiled.tangent_project_flat(meta, Xf, V),
+        "precond_project (flat_precond)": lambda: tiled.precond_project(
+            TP, Xf, V),
+        "hessvec chain (SpMM + flat_rhess)": lambda: FLAT_BACKEND.rhess(
+            TP, Xf, V, aux),
         "dots + axpys (x3)": lambda: (
             V * (1.0 / (1e-8 + _vdot(V, V)))
             + 0.1 * V * _vdot(V, Xf) + 1e-3 * Xf * _vdot(V, V)),

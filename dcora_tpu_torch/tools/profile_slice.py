@@ -132,19 +132,19 @@ class CallLog:
 def _solve(path: str) -> dict:
     """One certified solve of a .g2o or .pyfg file on the card, with its
     stages, SpMM launches and BTD applications."""
-    counts, tps = defaultdict(int), {}
-    real = tiled.precondition_flat
+    tps = {}
 
-    def counted(TP, Vf):
-        if TP.btd_ltil is not None:
-            key = (Vf.shape[0], str(Vf.dtype).split(".")[-1])
-            counts[key] += 1
-            tps[key] = TP
-        return real(TP, Vf)
+    def key(TP, Vf):
+        if TP.btd_ltil is None:
+            return None
+        k = (Vf.shape[0], str(Vf.dtype).split(".")[-1])
+        tps[k] = TP
+        return k
 
     res = {}
     spmm.reset_launches()
-    tiled.precondition_flat = counted
+    # applications recorded in a tCG graph count once per replay
+    counts, restore = common.count_calls(tiled, "precondition_flat", key)
     try:
         t0 = time.perf_counter()
         if path.endswith(".pyfg"):
@@ -160,7 +160,8 @@ def _solve(path: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        tiled.precondition_flat = real
+        restore()
+    counts.pop(None, None)
     st = res["staircase"]
     return dict(wall_s=wall, f=f, f_lifted=st.f_final, rank=st.final_rank,
                 certified=st.certified, gradnorm=st.gradnorm_final,

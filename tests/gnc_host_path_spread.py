@@ -34,6 +34,10 @@ the tests):
         python tests/gnc_host_path_spread.py traces b.json 7
     python tests/gnc_host_path_spread.py spread a.json b.json
 
+``traces --robust`` writes solve_robust_pgo's final weights and gauged
+trajectory instead, and ``spread`` then prints ``w_max`` and
+``traj_rel`` of every pair.
+
 Measured on an 8-core x86 host (CPU runs, seed 7, behind the gate of
 test_distributed_gnc_matches_jax): ``cost_rel_first`` of
 
@@ -47,6 +51,14 @@ test_distributed_gnc_matches_jax): ``cost_rel_first`` of
     port numpy vs JAX native, default threading          1.53e-8
     port numpy vs JAX native, one thread                 2.87e-8
     port native vs JAX native, either threading          3.8e-9 / 1.50e-8
+
+and, with ``--robust`` (behind test_solve_robust_pgo_matches_jax), the
+largest ``w_max`` / ``traj_rel`` at seed 7 of
+
+    JAX against itself (two threadings, two host paths)  1.39e-5 / 6.12e-8
+    port native vs numpy (either threading)              1.37e-5 / 2.88e-8
+    port numpy vs JAX native, default threading          1.22e-5 / 2.87e-8
+    port numpy vs JAX native, one thread                 6.32e-6 / 2.15e-8
 """
 
 from __future__ import annotations
@@ -170,29 +182,48 @@ def _compare(kind, a, b):
                 same=a["verdict"] == b["verdict"])
 
 
-def _traces(data, out, seeds, threads):
-    """The distributed runs' round costs up to the first weight update,
-    {engine-path: {seed: [cost]}}, with this process's threading, to
-    `out`."""
+def _traces(data, out, seeds, threads, kind="distributed"):
+    """With this process's threading, to `out`: the distributed runs'
+    round costs up to the first weight update, {engine-path: {seed:
+    [cost]}}; or, for kind "robust", solve_robust_pgo's final weights and
+    its trajectory with pose 0 at the identity over the largest coordinate,
+    {engine-path: {seed: {"w": [...], "traj": [...]}}}."""
     torch.set_num_threads(threads)
-    rec = dict(xla_flags=os.environ.get("XLA_FLAGS", ""),
+    rec = dict(kind=kind, xla_flags=os.environ.get("XLA_FLAGS", ""),
                torch_threads=threads, traces={})
     with tempfile.TemporaryDirectory() as tmp:
         for seed in seeds:
             for engine in "JT":
                 for native in (1, 0):
                     _host_path(engine, native)
-                    r = _distributed(data, seed, engine, tmp)
+                    if kind == "robust":
+                        r = _robust(data, seed, engine)
+                        tr = dict(w=r["w"].tolist(), traj=(
+                            r["gauge"] / r["scale"]).ravel().tolist())
+                    else:
+                        r = _distributed(data, seed, engine, tmp)
+                        tr = r["cost"][:r["first"]].tolist()
                     rec["traces"].setdefault(_name((engine, native)), {})[
-                        str(seed)] = r["cost"][:r["first"]].tolist()
+                        str(seed)] = tr
     _host_path("J", 1)
     with open(out, "w") as fh:
         json.dump(rec, fh)
 
 
+def _gaps(a, b) -> dict:
+    """The gaps between two traces of one seed: cost_rel_first of the
+    distributed round costs, or w_max and traj_rel of the robust GNC."""
+    if isinstance(a, dict):
+        return dict(w_max=float(np.abs(np.subtract(a["w"], b["w"])).max()),
+                    traj_rel=float(np.abs(np.subtract(a["traj"],
+                                                      b["traj"])).max()))
+    ca, cb = np.asarray(a), np.asarray(b)
+    return dict(cost_rel_first=float(np.max(np.abs(ca - cb) / np.abs(cb))))
+
+
 def _spread(files):
-    """cost_rel_first of every pair of traces across `files`, one JSON row
-    per pair and seed."""
+    """The gaps of every pair of traces across `files` (of one kind), one
+    JSON row per pair and seed."""
     runs = []
     for f in files:
         with open(f) as fh:
@@ -203,11 +234,9 @@ def _spread(files):
     for i, (ta, na, a) in enumerate(runs):
         for tb, nb, b in runs[i + 1:]:
             for seed in sorted(set(a) & set(b), key=int):
-                ca, cb = np.asarray(a[seed]), np.asarray(b[seed])
-                print(json.dumps(dict(
-                    seed=int(seed), a=f"{na} {ta}", b=f"{nb} {tb}",
-                    cost_rel_first=float(np.max(np.abs(ca - cb)
-                                                / np.abs(cb))))),
+                print(json.dumps(dict(seed=int(seed), a=f"{na} {ta}",
+                                      b=f"{nb} {tb}",
+                                      **_gaps(a[seed], b[seed]))),
                       flush=True)
 
 
@@ -225,7 +254,10 @@ def main(argv):
     data = os.environ.get("DCORA_DATA_DIR") or jds.ensure_test_datasets(
         os.path.join(ROOT, ".data_cache"))
     if kind == "traces":
-        return _traces(data, argv[1], [int(s) for s in argv[2:]], threads)
+        robust = "--robust" in argv
+        argv = [a for a in argv if a != "--robust"]
+        return _traces(data, argv[1], [int(s) for s in argv[2:]], threads,
+                       "robust" if robust else "distributed")
     seeds = [int(s) for s in argv[1:]]
     assert kind in ("robust", "distributed"), kind
     with tempfile.TemporaryDirectory() as tmp:

@@ -122,19 +122,16 @@ def test_kernel_on_stacked_strips_matches_plain(fleet, dtype):
 
 
 def test_one_launch_per_batched_product(fleet):
-    from dcora_tpu_torch.core import spmm, tiled
+    from dcora_tpu_torch.core import spmm
     from dcora_tpu_torch.parallel.rbcd import ParallelRound
+    from dcora_tpu_torch.tools import common
 
     pp, Xb = fleet
     rnd = ParallelRound(pp, _cfg(), backend="tiled",
                         tile_dtype=torch.float32, device="cuda")
-    real, products = tiled.apply_tiled, [0]
-
-    def counted(TP, X):
-        products[0] += 1
-        return real(TP, X)
-
-    tiled.apply_tiled = counted
+    # a product recorded in the round's tCG graph counts once per replay,
+    # as its launch does
+    products, restore = common.count_products()
     try:
         spmm.reset_launches()
         X = Xb.to("cuda")
@@ -143,7 +140,7 @@ def test_one_launch_per_batched_product(fleet):
         torch.cuda.synchronize()
         counts = spmm.launch_counts()
     finally:
-        tiled.apply_tiled = real
+        restore()
     assert counts["spmm_sym"] == products[0] > 0
     assert counts["spmm_symmetric"] == counts["spmm_paired"] == 0
 

@@ -8,12 +8,13 @@ Inputs are made with numpy from a seed.  Tolerances: the host functions
 (weights, chi2inv, averaging) agree to 1e-12.  solve_robust_pgo rejects and
 accepts the same edges, its undecided weights agree to 1e-5 (each is a
 function of a residual at an iterate that both engines reach only to the
-solver's gradient tolerance, 1e-9 here), and its trajectory, with pose 0
-moved to the identity, agrees to 1e-8 of the largest coordinate (PGO
-without a prior is defined up to one rigid motion, along which the two
-solves drift apart by ~1e-3 at the same cost) with the port's numpy
-Jacobi build, and to 1e-7 with its native one, below the largest spread
-between the JAX package's own two builds.
+solver's gradient tolerance, 1e-9 here; 5e-5 with the port's numpy
+Jacobi build), and its trajectory, with pose 0 moved to the identity,
+agrees to 2e-7 of the largest coordinate (PGO without a prior is defined
+up to one rigid motion, along which the two solves drift apart by ~1e-3
+at the same cost) with the port's numpy Jacobi build, and to 1e-7 with
+its native one, set from the spread of the JAX package against itself
+(its threadings and its two builds).
 """
 
 import os
@@ -233,10 +234,22 @@ def _robust_gnc_gaps(data_dir, monkeypatch, port_native):
 
 def test_solve_robust_pgo_matches_jax(data_dir, monkeypatch):
     """Every final weight and the trajectory agree, the port building its
-    block-Jacobi preconditioner in numpy, as when these gates were set."""
+    block-Jacobi preconditioner in numpy.  The gates come from the spread
+    of each engine against itself at this seed (7), measured with
+    tests/gnc_host_path_spread.py traces --robust under XLA's default
+    threading and single-threaded Eigen, then spread (CPU runs, 8-core
+    x86 host): the JAX package moves against itself, over its two
+    threadings and its native and numpy host paths, by up to 1.39e-5 in a
+    weight and 6.12e-8 in the trajectory; the port over its two host
+    paths by 1.37e-5 and 2.88e-8 (not at all with XLA's threading).  The
+    port's numpy path lies 1.22e-5 / 2.87e-8 from JAX's default host path
+    under the default threading and 6.32e-6 / 2.15e-8 under one thread, so
+    the old gates, 1e-5 and 1e-8, sat below JAX's own spread.  The gates,
+    5e-5 and 2e-7, are about three times it.  Seeds 8 and 9: JAX against
+    itself up to 3.75e-7 / 1.36e-8 and 1.78e-5 / 2.28e-7."""
     w_gap, traj_gap = _robust_gnc_gaps(data_dir, monkeypatch, False)
-    assert w_gap <= 1e-5
-    assert traj_gap <= 1e-8
+    assert w_gap <= 5e-5
+    assert traj_gap <= 2e-7
 
 
 def test_solve_robust_pgo_native_matches_jax(data_dir, monkeypatch):
