@@ -76,8 +76,10 @@ counts once per replay):
     chordal init on the card, both ``build_tiled`` dtypes (host seconds and
     peak RSS), kernel 1 against its plain version (``spmm_strips_plain``)
     on its Q at f32 and f64 beside ``torch.sparse.mm``, the bound and the
-    profiler's device time, then the first rank's solve at the
-    ``tools.g2o100k_certify`` budget (rank 5, 200 outers x 50 tCG), one
+    profiler's device time, the same for the two flat kernels (against
+    their plain versions, share of the bound), then the first rank's
+    solve at the ``tools.g2o100k_certify`` budget (rank 5, 200 outers x
+    50 tCG), one
     launch of kernel 1 per tile product, Lambda(X) on the card and S's host
     assembly, held to the independent verifier's cost (1e-8) and gradient
     norm (the LDL^T proof and the staircase's climb run in the tool);
@@ -93,8 +95,9 @@ the flat phase the two kernels of ``csrc/flat_ops.cu`` (``flat_rhess``:
 the Hessian's projection with its Weingarten term; ``flat_precond``: the
 per-pose Jacobi solve with the projection) against their plain versions
 on grid10k, ra10k and par_grid10k's stack of 8 agents (f32 and f64, r_pad
-8 and 16) and the flat tCG's CUDA graph bitwise against its iterations
-issued one by one (every flat tiled path replays it: the PGO, GNC, RA and
+8 and 16, each timed; on grid10k and the stack, poses alone, the plain
+version's bits) and the flat tCG's CUDA graph bitwise against its
+iterations issued one by one (every flat tiled path replays it: the PGO, GNC, RA and
 g2o100k tile phases and the parallel tiled rounds, each of which must
 launch both kernels, or flat_rhess alone under BTD),
 and the tCG phase the edge path's tCG graph against its iterations issued
@@ -549,10 +552,11 @@ def flat_phase(torch, path10k, tps_ra, pp10k):
     projection), on grid10k (rank 5, per-pose Jacobi), ra10k (rank 3,
     spheres and landmarks; the BTD solve, so flat_precond does not run
     there) and par_grid10k's stack of 8 agents, in f32 and f64 at r_pad 8
-    and 16: within TOL of max|plain|, two launches bitwise equal, and at
-    r_pad 8 each timed per launch in turns with its plain version (CUDA
-    events) and on the device (profiler) beside its bound.  Then the flat
-    tCG through its CUDA graph against the same iterations issued one by
+    and 16: within TOL of max|plain|, the plain version's bits on grid10k
+    and the stack (poses alone), two launches bitwise equal, and each
+    timed per launch in turns with its plain version (CUDA events) and on
+    the device (profiler) beside its bound.  Then the flat tCG through its
+    CUDA graph against the same iterations issued one by
     one, bitwise over 6 iterations with the Weingarten term (grid10k f64
     and f32, ra10k f32, the stack f32), and the ms per iteration of both
     over a 100-iteration solve (the Weingarten term left out, so no solve
@@ -625,7 +629,12 @@ def flat_phase(torch, path10k, tps_ra, pp10k):
                 require(torch.equal(out, again), f"{kname} {name} {dt}: "
                         "two launches differ")
                 require(not out[rank:].any(), f"{kname}: zero rows not zero")
-                if kname not in ("flat_rhess", "flat_precond") or r_pad != 8:
+                # poses alone: every per-pose sum in the plain version's
+                # order, so its bits (gnc2500's gates rest on them)
+                require(same[kname] or name == "ra10k",
+                        f"{kname} {name} {dt} r_pad {r_pad}: not the plain "
+                        "version's bits on a problem of poses alone")
+                if kname not in ("flat_rhess", "flat_precond"):
                     continue
                 ms, plain_ms = common.time_turns_ms([kern, plain])
                 dev_ms = common.device_ms(kern)
@@ -1239,14 +1248,64 @@ def init_phase(torch, path):
     return {k: v[0] for k, v in out.items()}
 
 
+def g2o100k_flat_rows(torch, TP, gen):
+    """[g2o100k] flat_rhess (with the Weingarten term) and flat_precond on
+    the 97,336-pose tiles at r_pad 8: against their plain versions (TOL;
+    bitwise printed), timed in turns with them (CUDA events), on the
+    device (profiler) beside the bound, and with CUDA events behind a
+    sleep (common.queued_ms, device_ms's fallback).  Returns the kernel
+    rows."""
+    from dcora_tpu_torch.core import tiled
+    from dcora_tpu_torch.tools import common
+
+    meta, dt = TP.meta, str(TP.dtype).split(".")[-1]
+    X, V, E = _flat_state(torch, tiled, meta, (8, meta.kpad), 5,
+                          (gen, TP.dtype))
+    aux = tiled.weingarten_setup(meta, X, V)
+    cases = {
+        "flat_rhess": (lambda: tiled.flat_rhess(meta, X, V, E, aux),
+                       lambda: tiled._rhess_plain(meta, X, V, E, aux)),
+        "flat_precond": (lambda: tiled.flat_precond(TP, X, V),
+                         lambda: tiled._tangent_project_plain(
+                             meta, X, tiled._precondition_pose_plain(TP, V)))}
+    rows = []
+    for kname, (kern, plain) in cases.items():
+        out, ref = kern(), plain()
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        require(bool(torch.isfinite(out).all()) and err <= TOL[dt] * scale,
+                f"{kname} g2o100k {dt} disagrees with its plain version: "
+                f"{err:.3e} > {TOL[dt]:.0e} * {scale:.3e}")
+        same = torch.equal(out, ref)
+        del out, ref
+        ms, plain_ms = common.time_turns_ms([kern, plain], n=20)
+        dev_ms = common.device_ms(kern)
+        queued = common.queued_ms(kern)
+        bound, by = common.flat_bound_ms(kname, meta, 8, 1, TP.dtype,
+                                         hbm_gbs(torch))
+        rows.append(dict(kernel=kname, problem="g2o100k", dtype=dt, r_pad=8,
+                         live=5, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         device_ms=dev_ms, library_ms=None, bound_ms=bound,
+                         bound_by=by))
+        phase(f"[g2o100k] {kname} {dt} r_pad=8: device {dev_ms:.4f} ms per "
+              f"launch (common.device_ms), {bound / dev_ms:.1%} of its "
+              f"bound {bound:.4f} ms ({by}); queued events {queued:.4f} ms"
+              f"; events {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (20 back to back, median of 3 turns); "
+              f"max_abs_err={err:.3e} (rel {err / scale:.2e}), bitwise the "
+              f"plain version's: {same}")
+    return rows
+
+
 def g2o100k_phase(torch, tmp):
     """[g2o100k] The 97,336-pose grid (generate_large_scale_g2o, seed 100;
     46^3) on the card: the native reader, chordal init, both build_tiled
     dtypes (host seconds and peak RSS), kernel 1 against its plain version
     (spmm_strips_plain, not the dense tiles) on its Q at f32 and f64, r_pad
-    8, beside torch.sparse.mm, the bound and the profiler's device time;
-    then the first rank's solve (rank 5, solvers.rtr_fast at the
-    g2o100k tool's budget: 200 outers, 50 tCG) from the chordal init,
+    8, beside torch.sparse.mm, the bound and the profiler's device time,
+    and the two flat kernels likewise (g2o100k_flat_rows); then the first
+    rank's solve (rank 5, solvers.rtr_fast at the g2o100k tool's budget:
+    200 outers, 50 tCG) from the chordal init,
     Lambda(X) on the card and S's host assembly, each timed, held to the
     independent verifier's own functions (cost, Riemannian gradient norm)
     and the manifold.  Every tile product of the solve must launch kernel 1
@@ -1331,11 +1390,12 @@ def g2o100k_phase(torch, tmp):
             lambda: spmm.spmm_sym(Q.strips, X))  # noqa: B023
         rows[-1]["device_ms"] = dev_ms
         phase(f"[g2o100k] kernel 1 {str(dtype).split('.')[-1]} r_pad=8: "
-              f"device {dev_ms:.4f} ms per product (torch.profiler), "
+              f"device {dev_ms:.4f} ms per product (common.device_ms), "
               f"{rows[-1]['bound_ms'] / dev_ms:.1%} of its bound "
               f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); "
               f"stored nnz {stored_nnz}, full nnz {csr.values().numel()}")
         del csr, Xt, ref
+        rows += g2o100k_flat_rows(torch, TP, gen)
     # the first rank's solve at the tool's budget, from the chordal init
     X0 = lifted.pad_rank(lifted.from_pose_array(T0, device="cuda"), 5)
     cfg = solvers.rtr_config_from_params(ROptParameters(

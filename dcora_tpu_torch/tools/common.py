@@ -12,6 +12,7 @@ from __future__ import annotations
 import hashlib
 import os
 import subprocess
+import sys
 from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -85,24 +86,62 @@ def time_turns_ms(fns: Sequence[Callable], rounds: int = 3,
     return [sorted(t)[rounds // 2] for t in ts]
 
 
-def device_ms(fn: Callable, n: int = 20) -> float:
+def device_ms(fn: Callable, n: int = 20, profiler: bool = True) -> float:
     """Device time per call of fn: the durations of the CUDA kernels and
     memsets that torch.profiler records over n calls, summed, over n.
     Unlike time_ms it leaves out the host's launch overhead and the gaps
-    it leaves between kernels."""
+    it leaves between kernels.  Now and then a profile holds no CUDA event
+    at all, and three in a row have been seen empty; then (or with
+    profiler=False) it returns queued_ms(fn, n), which reads 1-2 us
+    higher, and says so on stderr."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # now and then a profile holds no CUDA event at all
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / n * 1e-3
-    raise RuntimeError("torch.profiler recorded no device time")
+    if profiler:
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        for _ in range(3):
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            us = sum(e.time_range.end - e.time_range.start
+                     for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+            if us > 0:
+                return us / n * 1e-3
+        print("device_ms: torch.profiler recorded no device time; timed "
+              "with CUDA events behind a sleep (queued_ms) instead",
+              file=sys.stderr, flush=True)
+    return queued_ms(fn, n)
+
+
+def queued_ms(fn: Callable, n: int = 20) -> float:
+    """Milliseconds per call of fn with the host's launch overhead left
+    out: a sleep kernel holds the stream while the host issues n calls
+    behind a start event, so the events time the device's work and the
+    gaps between its kernels (1-2 us each), not the host's.
+    The sleep is lengthened until the host has issued every call before it
+    ends; a fn that waits for the device never gets there, and then the
+    last time is returned, host gaps included, with a note on stderr."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 20  # ~0.5 ms at the H100's clock
+    for _ in range(6):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        stop.record()
+        queued = not start.query()  # the sleep still holds the stream
+        stop.synchronize()
+        if queued:
+            break
+        cycles *= 4
+    else:
+        print("queued_ms: the calls were not all issued within the sleep; "
+              "the time includes the host's gaps", file=sys.stderr,
+              flush=True)
+    return start.elapsed_time(stop) / n
 
 
 def state_sha256(X) -> str:

@@ -10,9 +10,13 @@ installed; every test skips without a CUDA device.  On the card:
 
 Problems: a 216-pose grid (per-pose Jacobi, the PGO tile phases') and a
 200-pose RA set with 85 unit spheres and 4 landmarks (BTD, as the RA tile
-phases), at rank 5 with zero rows up to r_pad.  Tolerances relative to the
-plain version's max: 1e-12 in f64 and 1e-5 in f32.  On the grid (poses
-alone) the kernels give the plain version's bits: they take every
+phases), at rank 5 with zero rows up to r_pad; and layouts that fill no
+tile of the kernels evenly (d = 2 and 3, n no multiple of a tile's 16
+poses, spheres, landmarks, stacks of 3 agents) with random operands, at
+r_pad 8, 16 and 24 (more rows than one staged chunk), also one element
+off 16-byte alignment.  Tolerances relative to the plain version's max:
+1e-12 in f64 and 1e-5 in f32.  On the grid, and on the pose blocks of
+every layout, the kernels give the plain version's bits: they take every
 per-pose sum in the order of the plain version's batched products; the
 sphere columns' sums are taken in another order.  Two launches, and the
 graph and the eager loop, give the same bits: the kernels use no atomics
@@ -20,6 +24,7 @@ and the graph records the same launches.
 """
 
 import dataclasses
+import types
 
 import pytest
 import torch
@@ -123,6 +128,104 @@ def test_kernels_match_plain(graphs, name, dtype, r_pad):
     assert after["flat_rhess"] - before["flat_rhess"] == 1 + 2 * 3
     assert after["flat_precond"] - before["flat_precond"] == \
         (2 if name == "grid" else 0)
+
+
+# Layouts the kernels tile unevenly: (d, n, l, b, T, nt, A), n no multiple
+# of a tile's 16 poses, spheres and landmarks, stacks of 3 agents.
+RAGGED = {
+    "d2-ra-stack": (2, 37, 5, 3, 32, 4, 3),
+    "d3-ra": (3, 45, 9, 2, 128, 2, 1),
+    "d3-pgo-stack": (3, 70, 0, 0, 128, 3, 3),
+    "d2-landmark": (2, 100, 0, 1, 32, 10, 1),
+}
+
+
+def _ragged(name, dtype, r_pad, seed=4):
+    """A TiledMeta of RAGGED[name] with random flat operands (zero rows
+    past RANK) and random Jacobi inverses."""
+    d, n, l, b, T, nt, A = RAGGED[name]  # noqa: E741
+    meta = tiled.TiledMeta(d=d, n=n, l=l, b=b, T=T, nt=nt)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lead = (A,) if A > 1 else ()
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, dtype=dtype, device="cuda")
+
+    X, V, E = (rand(r_pad, *lead, meta.kpad) for _ in range(3))
+    for a in (X, V, E):
+        a[RANK:] = 0.0
+    TP = types.SimpleNamespace(
+        meta=meta, jacobi={}, pose_inv=rand(*lead, n, d + 1, d + 1),
+        sph_inv=rand(*lead, l), lmk_inv=rand(*lead, b))
+    return meta, TP, X, V, E
+
+
+@pytest.mark.parametrize("r_pad", [8, 16, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", sorted(RAGGED))
+def test_ragged_tiles_match_plain(graphs, name, dtype, r_pad):
+    """Every mode of both kernels on layouts that fill no tile evenly, at
+    r_pad 8, 16 and 24 (more rows than one staged chunk): within RTOL of
+    the plain version, its bits on the pose blocks, zero rows zero, and two
+    launches bitwise equal."""
+    meta, TP, X, V, E = _ragged(name, dtype, r_pad)
+    aux = tiled.weingarten_setup(meta, X, V)
+    aux_p = tiled._weingarten_setup_plain(meta, X, V)
+    tol = RTOL[dtype]
+    assert _rel_err(aux[0], aux_p[0]) <= tol
+    if meta.l:
+        assert _rel_err(aux[1], aux_p[1]) <= tol
+    again = tiled.weingarten_setup(meta, X, V)
+    assert all(torch.equal(a, b) for a, b in zip(aux, again))
+    pairs = {
+        "tangent": (lambda: tiled.tangent_project_flat(meta, X, V),
+                    lambda: tiled._tangent_project_plain(meta, X, V)),
+        "rhess": (lambda: tiled.flat_rhess(meta, X, V, E, aux),
+                  lambda: tiled._rhess_plain(meta, X, V, E, aux)),
+        "hess": (lambda: tiled.flat_rhess(meta, None, V, E, aux,
+                                          project=False),
+                 lambda: tiled._rhess_plain(meta, None, V, E, aux,
+                                            project=False)),
+        "precond": (lambda: tiled.flat_precond(TP, X, V),
+                    lambda: tiled._tangent_project_plain(
+                        meta, X, tiled._precondition_pose_plain(TP, V))),
+    }
+    for what, (kern, plain) in pairs.items():
+        out, again, ref = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()), what
+        assert _rel_err(out, ref) <= tol, what
+        assert torch.equal(out, again), what
+        assert not out[RANK:].any(), what
+        poses = (..., slice(0, meta.pose_end))
+        assert torch.equal(out[poses], ref[poses]), what
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_unaligned_operands_match_aligned(graphs, dtype):
+    """Operands one element past a 16-byte boundary (contiguous views at
+    an odd offset) take the kernels' elementwise copies in place of the
+    bulk ones, and give the same bits in every mode."""
+    meta, TP, X, V, E = _ragged("d3-ra", dtype, 16)
+
+    def shifted(a):
+        b = torch.empty(a.numel() + 1, dtype=dtype, device="cuda")[1:]
+        return b.view(a.shape).copy_(a)
+
+    Xs, Vs, Es = (shifted(a) for a in (X, V, E))
+    assert Xs.is_contiguous() and Xs.data_ptr() % 16
+    aux, aux_s = (tiled.weingarten_setup(meta, x, v)
+                  for x, v in ((X, V), (Xs, Vs)))
+    assert all(torch.equal(a, b) for a, b in zip(aux, aux_s))
+    for out, ref in (
+            (tiled.flat_rhess(meta, Xs, Vs, Es, aux),
+             tiled.flat_rhess(meta, X, V, E, aux)),
+            (tiled.flat_rhess(meta, None, Vs, Es, aux, project=False),
+             tiled.flat_rhess(meta, None, V, E, aux, project=False)),
+            (tiled.tangent_project_flat(meta, Xs, Vs),
+             tiled.tangent_project_flat(meta, X, V)),
+            (tiled.flat_precond(TP, Xs, Vs), tiled.flat_precond(TP, X, V))):
+        assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
