@@ -38,6 +38,7 @@ from dcora_tpu_torch.core.manifold import (
 )
 from dcora_tpu_torch.core.problem import ProblemData
 from dcora_tpu_torch.types import ProblemDims
+from dcora_tpu_torch.utils.timing import count, span
 
 
 class Certificate(NamedTuple):
@@ -90,6 +91,7 @@ def _lanczos(mv, v0: torch.Tensor, m: int, breakdown: float,
     Returns (alphas, betas, basis).  After a lucky breakdown (beta below
     `breakdown`) the next vector is a fresh random direction orthogonal to
     the basis, drawn from `generator`.  No host sync inside the loop."""
+    count("lanczos.steps", m)
     k = v0.shape[0]
     basis = torch.zeros((m, k), dtype=v0.dtype, device=v0.device)
     alphas = torch.zeros(m, dtype=v0.dtype, device=v0.device)
@@ -326,17 +328,20 @@ def ldl_psd_proof(S) -> Optional[bool]:
 
 
 def _inertia_bracket_min_eig(S, eta: float, max_doublings: int = 40,
-                             bisections: int = 10):
+                             bisections: int = 10,
+                             times: Optional[dict] = None):
     """Bracket -lambda_min(S) with the LDL^T inertia oracle, given that
     S + eta*I is proven indefinite: double t until S + t*I factors PD, then
-    bisect.  Returns (lo, hi) or None."""
+    bisect.  Returns (lo, hi) or None.  Each factorization is a span
+    "certify/ldlt" into `times`."""
     import scipy.sparse as sp
 
     eye = sp.identity(S.shape[0], format="csc")
     lo, hi = eta, None
     t = max(2.0 * eta, 1e-10)
     for _ in range(max_doublings):
-        pr = ldl_psd_proof(S + t * eye)
+        with span("certify/ldlt", into=times):
+            pr = ldl_psd_proof(S + t * eye)
         if pr is True:
             hi = t
             break
@@ -347,7 +352,8 @@ def _inertia_bracket_min_eig(S, eta: float, max_doublings: int = 40,
         return None
     for _ in range(bisections):
         mid = 0.5 * (lo + hi)
-        pr = ldl_psd_proof(S + mid * eye)
+        with span("certify/ldlt", into=times):
+            pr = ldl_psd_proof(S + mid * eye)
         if pr is True:
             hi = mid
         elif pr is False:
@@ -358,7 +364,7 @@ def _inertia_bracket_min_eig(S, eta: float, max_doublings: int = 40,
 
 
 def _min_eig_host(P: ProblemData, C: Certificate, dims: ProblemDims,
-                  eta: float = 0.0
+                  eta: float = 0.0, times: Optional[dict] = None
                   ) -> Tuple[bool, float, Optional[np.ndarray]]:
     """Fail-closed host check of lambda_min(S) >= -eta.
 
@@ -373,79 +379,88 @@ def _min_eig_host(P: ProblemData, C: Certificate, dims: ProblemDims,
     one ARPACK draws its start from a stream it keeps across calls in the
     process, so the same S gives another estimate (in its last digits) on
     every call.  The JAX package leaves two of the calls unseeded.
+
+    The assembly, each LDL^T factorization and the eigensolvers are spans
+    "certify/assemble", "certify/ldlt" and "certify/host_eig" into `times`.
     """
     import scipy.sparse as sp
     from scipy.sparse.linalg import ArpackNoConvergence, eigsh, lobpcg
 
     k = dims.k
-    S = _assemble_S_host(P, C, dims)
+    with span("certify/assemble", into=times):
+        S = _assemble_S_host(P, C, dims)
     rng = np.random.default_rng(0)
 
     if eta > 0:
         logging.getLogger(__name__).info(
             "host LDL^T proof of S + eta I: k=%d, nnz=%d", k, S.nnz)
-        proof = ldl_psd_proof(S + eta * sp.identity(k, format="csr"))
+        with span("certify/ldlt", into=times):
+            proof = ldl_psd_proof(S + eta * sp.identity(k, format="csr"))
         if proof is True:
             return True, 0.0, None
         if proof is False:
             # inertia PROVES lambda_min < -eta; bracket it and pull an
             # escape direction by shift-invert inside the bracket
-            br = _inertia_bracket_min_eig(S, eta)
+            br = _inertia_bracket_min_eig(S, eta, times=times)
             if br is not None:
                 lo, hi = br
                 sigma = -0.5 * (lo + hi)
-                try:
-                    _, Vv = eigsh(S, k=1, sigma=sigma, which="LM",
-                                  maxiter=1000, v0=rng.standard_normal(k))
-                    v = Vv[:, 0]
-                    v = v / np.linalg.norm(v)
-                    theta = float(v @ (S @ v))
-                    if theta + eta < 0:
-                        return False, theta, v
-                except Exception:  # noqa: BLE001  (ARPACK failure)
-                    pass
+                with span("certify/host_eig", into=times):
+                    try:
+                        _, Vv = eigsh(S, k=1, sigma=sigma, which="LM",
+                                      maxiter=1000,
+                                      v0=rng.standard_normal(k))
+                        v = Vv[:, 0]
+                        v = v / np.linalg.norm(v)
+                        theta = float(v @ (S @ v))
+                        if theta + eta < 0:
+                            return False, theta, v
+                    except Exception:  # noqa: BLE001  (ARPACK failure)
+                        pass
                 return False, -0.5 * (lo + hi), None
             return False, -eta, None
 
-    lam_max = float(eigsh(S, k=1, which="LA", return_eigenvectors=False,
-                          tol=1e-4, ncv=min(k, 50),
-                          v0=rng.standard_normal(k))[0])
-    shift = 1.01 * max(lam_max, 1e-6)
-    B = (shift * sp.identity(k, format="csr") - S).tocsr()
-    rng = np.random.default_rng(0)
-    v, converged = None, False
-    for ncv in (min(k, 96), min(k, 256)):
-        try:
-            _, vecs = eigsh(B, k=1, which="LA", tol=1e-7, ncv=ncv,
-                            maxiter=500, v0=rng.standard_normal(k))
-            v, converged = vecs[:, 0], True
-            break
-        except ArpackNoConvergence as e:
-            if len(e.eigenvectors) and e.eigenvectors.shape[1]:
-                v = e.eigenvectors[:, -1]  # kept only as a candidate
-    if not converged:
-        Xb = rng.standard_normal((k, min(k, 8)))
-        if v is not None:
-            Xb[:, 0] = v
-        w, Vb = lobpcg(B, Xb, tol=1e-7, maxiter=2000, largest=True)
-        v = Vb[:, int(np.argmax(w))]
-    v = v / np.linalg.norm(v)
-    Sv = S @ v
-    theta = float(v @ Sv)
-    resid = float(np.linalg.norm(Sv - theta * v))
-    if theta + eta < 0:
-        return False, theta, v  # sound: theta >= lambda_min
-    if resid <= max(1e-8 * max(abs(lam_max), 1.0), 1e-12):
-        return theta + eta >= 0, theta, v
-    logging.getLogger(__name__).warning(
-        "PSD check inconclusive (resid=%.3e, theta=%.3e): failing closed",
-        resid, theta)
-    return False, theta, v
+    with span("certify/host_eig", into=times):
+        lam_max = float(eigsh(S, k=1, which="LA", return_eigenvectors=False,
+                              tol=1e-4, ncv=min(k, 50),
+                              v0=rng.standard_normal(k))[0])
+        shift = 1.01 * max(lam_max, 1e-6)
+        B = (shift * sp.identity(k, format="csr") - S).tocsr()
+        rng = np.random.default_rng(0)
+        v, converged = None, False
+        for ncv in (min(k, 96), min(k, 256)):
+            try:
+                _, vecs = eigsh(B, k=1, which="LA", tol=1e-7, ncv=ncv,
+                                maxiter=500, v0=rng.standard_normal(k))
+                v, converged = vecs[:, 0], True
+                break
+            except ArpackNoConvergence as e:
+                if len(e.eigenvectors) and e.eigenvectors.shape[1]:
+                    v = e.eigenvectors[:, -1]  # kept only as a candidate
+        if not converged:
+            Xb = rng.standard_normal((k, min(k, 8)))
+            if v is not None:
+                Xb[:, 0] = v
+            w, Vb = lobpcg(B, Xb, tol=1e-7, maxiter=2000, largest=True)
+            v = Vb[:, int(np.argmax(w))]
+        v = v / np.linalg.norm(v)
+        Sv = S @ v
+        theta = float(v @ Sv)
+        resid = float(np.linalg.norm(Sv - theta * v))
+        if theta + eta < 0:
+            return False, theta, v  # sound: theta >= lambda_min
+        if resid <= max(1e-8 * max(abs(lam_max), 1.0), 1e-12):
+            return theta + eta >= 0, theta, v
+        logging.getLogger(__name__).warning(
+            "PSD check inconclusive (resid=%.3e, theta=%.3e): failing closed",
+            resid, theta)
+        return False, theta, v
 
 
 def fast_verification(P: ProblemData, X: RAState, eta: float,
                       num_lanczos: int = 64, TP=None,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      times: Optional[dict] = None):
     """Check S + eta*I >= 0 (reference: fastVerification,
     DCORA_utils.cpp:1713-1735).
 
@@ -454,23 +469,31 @@ def fast_verification(P: ProblemData, X: RAState, eta: float,
     "Not PSD" is proven by an exact f64 Rayleigh quotient; "PSD" is
     confirmed by the host LDL^T check.  With TP (a tiled.TiledProblem) the
     search first runs on the tiled operator through the SpMM kernel.
+    Its steps are spans "certify/<part>" (blocks, lanczos, assemble, ldlt,
+    host_eig) into `times`.
     """
-    C = dual_certificate_blocks(P, X)
+    count("certify.calls")
+    with span("certify/blocks", into=times):
+        C = dual_certificate_blocks(P, X)
     dims = X.dims
     mv = _flat_matvec(P, C, dims, 0.0)
     if TP is not None:
-        _, v_est = minimum_eigen_pair_tiled(TP, X, num_lanczos, generator)
-        vj = v_est / torch.linalg.vector_norm(v_est)
-        theta = float(torch.dot(vj, mv(vj)))
+        with span("certify/lanczos", into=times):
+            _, v_est = minimum_eigen_pair_tiled(TP, X, num_lanczos,
+                                                generator)
+            vj = v_est / torch.linalg.vector_norm(v_est)
+            theta = float(torch.dot(vj, mv(vj)))
         if theta + eta < 0:
             return False, theta, vj
-    lam_min, v, _ = minimum_eigen_pair(P, C, dims, num_lanczos,
-                                       generator=generator)
-    if lam_min + eta < 0:
-        theta = float(torch.dot(v, mv(v)))
-        if theta + eta < 0:
-            return False, theta, v
-    certified, lam_host, v_host = _min_eig_host(P, C, dims, eta)
+    with span("certify/lanczos", into=times):
+        lam_min, v, _ = minimum_eigen_pair(P, C, dims, num_lanczos,
+                                           generator=generator)
+        if lam_min + eta < 0:
+            theta = float(torch.dot(v, mv(v)))
+            if theta + eta < 0:
+                return False, theta, v
+    certified, lam_host, v_host = _min_eig_host(P, C, dims, eta,
+                                                times=times)
     if certified:
         return True, 0.0, None
     if v_host is not None:

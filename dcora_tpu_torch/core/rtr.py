@@ -52,6 +52,7 @@ from dcora_tpu_torch.core import problem as prob
 from dcora_tpu_torch.core import tiled
 from dcora_tpu_torch.core.lifted import RAState
 from dcora_tpu_torch.core.manifold import retract, tangent_project
+from dcora_tpu_torch.utils.timing import count, span
 
 
 # --------------------------------------------------------------------------
@@ -428,6 +429,15 @@ def _all(flag: torch.Tensor) -> torch.Tensor:
     return flag if flag.dim() == 0 else flag.all()
 
 
+def _count_tcg(issued: int, it: torch.Tensor):
+    """The counters of one tCG call: "tcg.issued", the iterations issued
+    for each solve of it (one, or an agent's in a stack), masked ones
+    included; "tcg.useful", the sum of its iteration counts, added on the
+    device (no host wait)."""
+    count("tcg.issued", issued * it.numel())
+    count("tcg.useful", it)
+
+
 def truncated_cg(P, X, grad, egrad, M, radius, max_inner: int,
                  kappa: float, theta: float, be=RA_BACKEND,
                  graph: Optional[TCGGraph] = None,
@@ -439,7 +449,8 @@ def truncated_cg(P, X, grad, egrad, M, radius, max_inner: int,
     sees the device-side convergence flag, a few iterations late at most,
     and those change nothing (_tcg_step).  On a stack of agents `done0`
     marks the agents whose solve is not wanted; the host stops when every
-    agent's solve has converged."""
+    agent's solve has converged.  From the first issued iteration to the
+    last probe is the span "rtr.tcg"; the counters are _count_tcg's."""
     ax = be.agent_dim
     zero = tmap(torch.zeros_like, grad)
     r = grad
@@ -453,25 +464,34 @@ def truncated_cg(P, X, grad, egrad, M, radius, max_inner: int,
     if done0 is not None:
         done = done | done0
     s = _TCGState(zero, zero, r, z, d, tvdot(r, z, ax), it, done)
+    issued = 0
     if graph is None:
-        probe = _DoneProbe(r0_norm.device)
+        with span("rtr.tcg"):
+            probe = _DoneProbe(r0_norm.device)
+            probe.post(_all(done))
+            for _ in range(max_inner):
+                if probe.finished():
+                    break
+                s = _tcg_step(be, P, M, X, aux, radius, stop_tol, max_inner,
+                              s)
+                issued += 1
+                probe.post(_all(s.done))
+        _count_tcg(issued, s.it)
+        return TCGResult(eta=s.eta, Heta=s.Heta, inner_iters=s.it)
+    with span("rtr.tcg"):
+        graph.load(X, aux, radius, stop_tol, s)
+        # two replays in flight: the device never waits for the host, and
+        # the host overshoots convergence by at most 2 * STEPS masked
+        # iterations
+        probe = _DoneProbe(r0_norm.device, ring=2)
         probe.post(_all(done))
-        for _ in range(max_inner):
+        for _ in range(-(-max_inner // graph.STEPS)):
             if probe.finished():
                 break
-            s = _tcg_step(be, P, M, X, aux, radius, stop_tol, max_inner, s)
-            probe.post(_all(s.done))
-        return TCGResult(eta=s.eta, Heta=s.Heta, inner_iters=s.it)
-    graph.load(X, aux, radius, stop_tol, s)
-    # two replays in flight: the device never waits for the host, and the
-    # host overshoots convergence by at most 2 * STEPS masked iterations
-    probe = _DoneProbe(r0_norm.device, ring=2)
-    probe.post(_all(done))
-    for _ in range(-(-max_inner // graph.STEPS)):
-        if probe.finished():
-            break
-        probe.post(_all(graph.replay()))
+            probe.post(_all(graph.replay()))
+            issued += graph.STEPS
     s = _TCGState(*_unflatten(s, [x.clone() for x in graph.state]))
+    _count_tcg(issued, s.it)
     return TCGResult(eta=s.eta, Heta=s.Heta, inner_iters=s.it)
 
 
@@ -488,7 +508,8 @@ class RTRResult(NamedTuple):
 def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         radius0=None, graph: Optional[TCGGraph] = None) -> RTRResult:
     """Riemannian trust region from X0 until gradnorm < cfg.gradnorm_tol or
-    cfg.max_outer outer iterations.  One host sync per outer iteration.
+    cfg.max_outer outer iterations.  One host sync per outer iteration,
+    which ends its span "rtr.outer"; the counter "rtr.outer" counts them.
 
     On the card the tCG replays `graph` (a TCGGraph over the same P, M
     and cfg.max_inner, kept by a caller that solves the same problem many
@@ -551,23 +572,28 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         # (QuadraticOptimizer.cpp:54-56)
         accepted = done
         while it <= cfg.max_rejections and not accepted:
-            X, W, _, accept, _ = try_step(X, W, radius)
-            radius = radius / 4.0
+            with span("rtr.outer"):
+                X, W, _, accept, _ = try_step(X, W, radius)
+                radius = radius / 4.0
+                accepted = bool(accept)
             it += 1
-            accepted = bool(accept)
+            count("rtr.outer")
         return RTRResult(X=X, f_final=f_of(X, W),
                          gradnorm_final=tnorm(be.tangent(P, X, egrad_of(W))),
                          outer_iters=it, accepted=accepted or done,
                          radius_final=radius)
     while it < cfg.max_outer and not done:
-        X, W, rho, accept, hit_boundary = try_step(X, W, radius)
-        radius = torch.where(
-            rho < 0.25, radius / 4.0,
-            torch.where(hit_boundary & (rho > 0.75),
-                        torch.clamp(2.0 * radius, max=max_radius), radius))
-        gnorm = tnorm(be.tangent(P, X, egrad_of(W)))
+        with span("rtr.outer"):
+            X, W, rho, accept, hit_boundary = try_step(X, W, radius)
+            radius = torch.where(
+                rho < 0.25, radius / 4.0,
+                torch.where(hit_boundary & (rho > 0.75),
+                            torch.clamp(2.0 * radius, max=max_radius),
+                            radius))
+            gnorm = tnorm(be.tangent(P, X, egrad_of(W)))
+            flags = torch.stack([gnorm < cfg.gradnorm_tol, accept]).tolist()
         it += 1
-        flags = torch.stack([gnorm < cfg.gradnorm_tol, accept]).tolist()
+        count("rtr.outer")
         done = flags[0]
         any_acc = any_acc or flags[1]
     return RTRResult(X=X, f_final=f_of(X, W), gradnorm_final=gnorm,

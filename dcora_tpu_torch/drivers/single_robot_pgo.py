@@ -27,6 +27,7 @@ from dcora_tpu_torch.solvers import precond_build, resolve_device, solve_pgo
 from dcora_tpu_torch.staircase import StaircaseResult, riemannian_staircase
 from dcora_tpu_torch.types import ROptParameters
 from dcora_tpu_torch.utils.logger import Logger
+from dcora_tpu_torch.utils.timing import span
 
 
 def run(g2o_path: str, certify: bool = False, log_directory: str = "",
@@ -36,30 +37,39 @@ def run(g2o_path: str, certify: bool = False, log_directory: str = "",
     """Solve one g2o file; returns (T_out [n, d, d+1], f).
 
     When `result` is a dict, the staircase result (StaircaseResult under
-    "staircase"), the init/staircase wall times and which host builds ran
-    ("reader" and "precond": "native" or "numpy") are stored into it."""
+    "staircase"), the read/init/staircase wall times ("read_s", "init_s":
+    the graph and the chordal init, "staircase_s") and which host builds
+    ran ("reader" and "precond": "native" or "numpy") are stored into it.
+    The certified solve's steps are spans "pgo.read", "pgo.graph",
+    "pgo.init", "pgo.staircase" and "pgo.output"."""
     dev = resolve_device(device)
-    ds = read_g2o_file(g2o_path)
+    with span("pgo.read") as read:
+        ds = read_g2o_file(g2o_path)
     ms = ds.pose_pose_measurements
     d = ds.dim
     t0 = time.time()
     params = opt_params or ROptParameters(
         gradnorm_tol=1e-4, RTR_iterations=200, RTR_tCG_iterations=200)
     if certify:
-        g = LocalGraph(0, d + 2, d)
-        g.set_measurements(ms)
-        T = chordal_initialization(ms, device=dev)
-        t_init = time.time() - t0
-        X0 = lifted.pad_rank(lifted.from_pose_array(T, device=dev), d + 2)
-        res: StaircaseResult = riemannian_staircase(
-            g, X0, r_min=d + 2, r_max=min(r_max, 20), opt_params=params,
-            min_eig_num_tol=eta)
-        T_out = np.zeros((g.n, d, d + 1))
-        T_out[:, :, :d] = res.rounded.rot.cpu().numpy()
-        T_out[:, :, d] = res.rounded.trn.cpu().numpy()
-        f = float(prob.cost(g.problem_data(device=dev), res.rounded))
+        with span("pgo.graph") as graph:
+            g = LocalGraph(0, d + 2, d)
+            g.set_measurements(ms)
+        with span("pgo.init") as init:
+            T = chordal_initialization(ms, device=dev)
+        with span("pgo.staircase"):
+            X0 = lifted.pad_rank(lifted.from_pose_array(T, device=dev),
+                                 d + 2)
+            res: StaircaseResult = riemannian_staircase(
+                g, X0, r_min=d + 2, r_max=min(r_max, 20),
+                opt_params=params, min_eig_num_tol=eta)
+        with span("pgo.output"):
+            T_out = np.zeros((g.n, d, d + 1))
+            T_out[:, :, :d] = res.rounded.rot.cpu().numpy()
+            T_out[:, :, d] = res.rounded.trn.cpu().numpy()
+            f = float(prob.cost(g.problem_data(device=dev), res.rounded))
         if result is not None:
-            result.update(staircase=res, init_s=t_init,
+            result.update(staircase=res, read_s=read.seconds,
+                          init_s=graph.seconds + init.seconds,
                           staircase_s=res.elapsed_s, reader=ds.reader,
                           precond=precond_build())
         if verbose:

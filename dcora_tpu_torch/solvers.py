@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -38,6 +37,7 @@ from dcora_tpu_torch.types import (
     RobustCostParameters,
     RobustCostType,
 )
+from dcora_tpu_torch.utils.timing import span
 
 # below this size the tiled phases cost more than the f64 edge iterations
 # they save (the same threshold as the JAX package)
@@ -161,8 +161,10 @@ def rtr_fast(g: LocalGraph, P: prob.ProblemData, M, X0: RAState,
     (and finishes problems above 150k edges on f64 tiles); none of that
     exists here: each phase is one call, run to tolerance or stall.
     Returns (RTRResult, TileCache); pass the cache back in to reuse tiles.
-    When `stats` is a dict, the host seconds of the tile builds are added
-    to its "build_s".
+    The tile builds and the three phases are spans "solve/build",
+    "solve/tiles_f32", "solve/tiles_f64" and "solve/edge"; when `stats` is
+    a dict, their host seconds are added to it under those names (the
+    staircase passes its stage seconds: they are parts of its "solve").
     """
     r = X0.r
     r_pad = max(8, -(-r // 8) * 8)
@@ -172,13 +174,9 @@ def rtr_fast(g: LocalGraph, P: prob.ProblemData, M, X0: RAState,
     reg = precond_reg(g, P) if tile_pc else 0.1
 
     def build(dtype):
-        t0 = time.perf_counter()
-        out = tiled.build_tiled(P, g.dims, dtype=dtype, precond=M, reg=reg,
-                                tile_precond=tile_pc)
-        if stats is not None:
-            stats["build_s"] = stats.get("build_s", 0.0) + \
-                time.perf_counter() - t0
-        return out
+        with span("solve/build", into=stats):
+            return tiled.build_tiled(P, g.dims, dtype=dtype, precond=M,
+                                     reg=reg, tile_precond=tile_pc)
 
     if TP.f32 is None:
         TP.f32 = build(torch.float32)
@@ -218,13 +216,17 @@ def rtr_fast(g: LocalGraph, P: prob.ProblemData, M, X0: RAState,
     if skip_coarse or gn0 < 100.0 * cfg.gradnorm_tol:
         X_warm, gn32 = X0, gn0
     else:
-        X_warm, gn32 = drive_tiled(TP.f32, X0, chunk=25)
+        with span("solve/tiles_f32", into=stats):
+            X_warm, gn32 = drive_tiled(TP.f32, X0, chunk=25)
     if not skip_coarse and gn32 > cfg.gradnorm_tol \
             and gn0 >= 100.0 * cfg.gradnorm_tol:
         if TP.f64 is None:
             TP.f64 = build(torch.float64)
-        X_warm, _ = drive_tiled(TP.f64, X_warm, chunk=8)
-    return rtr(P, G, M, X_warm, cfg), TP
+        with span("solve/tiles_f64", into=stats):
+            X_warm, _ = drive_tiled(TP.f64, X_warm, chunk=8)
+    with span("solve/edge", into=stats):
+        res = rtr(P, G, M, X_warm, cfg)
+    return res, TP
 
 
 def solve_pgo(measurements: List[RelativePosePoseMeasurement],
@@ -236,35 +238,39 @@ def solve_pgo(measurements: List[RelativePosePoseMeasurement],
     is absent).
 
     Returns the optimized trajectory [n, d, d+1].  When `stats` is a dict,
-    the host seconds of the chordal init ("init_s"), the tile builds
-    ("build_s") and the whole call ("total_s") are added to it."""
-    t_start = time.perf_counter()
-    device = resolve_device(device)
-    params = params or ROptParameters()
-    d = measurements[0].t.shape[0]
-    T = T0 if T0 is not None else chordal_initialization(measurements,
-                                                         device=device)
+    the host seconds of the chordal init ("init_s", the span "pgo.init"),
+    the tile builds ("build_s") and the whole call ("total_s", the span
+    "pgo.solve") are added to it."""
+    with span("pgo.solve") as total:
+        with span("pgo.init") as init:
+            device = resolve_device(device)
+            params = params or ROptParameters()
+            d = measurements[0].t.shape[0]
+            T = T0 if T0 is not None else chordal_initialization(
+                measurements, device=device)
+        g = build_pgo_graph(measurements, r=d)
+        P = g.problem_data(device=device)
+        M = make_preconditioner(g, P)
+        X0 = lifted.from_pose_array(T, device=device)
+        cfg = rtr_config_from_params(params)
+        G = prob.linear_term(P, None, g.n, g.l, g.dims.num_trans)
+        parts = {}
+        if g.n >= FAST_PATH_MIN_POSES:
+            res, _ = rtr_fast(g, P, M, X0, cfg, G=G, stats=parts)
+        else:
+            res = rtr(P, G if G is not None
+                      else lifted.zeros(g.dims, d, device=device), M, X0,
+                      cfg)
+        X = res.X
+        out = np.zeros((g.n, d, d + 1))
+        out[:, :, :d] = X.rot.cpu().numpy()
+        out[:, :, d] = X.trn.cpu().numpy()
     if stats is not None:
-        stats["init_s"] = stats.get("init_s", 0.0) + \
-            time.perf_counter() - t_start
-    g = build_pgo_graph(measurements, r=d)
-    P = g.problem_data(device=device)
-    M = make_preconditioner(g, P)
-    X0 = lifted.from_pose_array(T, device=device)
-    cfg = rtr_config_from_params(params)
-    G = prob.linear_term(P, None, g.n, g.l, g.dims.num_trans)
-    if g.n >= FAST_PATH_MIN_POSES:
-        res, _ = rtr_fast(g, P, M, X0, cfg, G=G, stats=stats)
-    else:
-        res = rtr(P, G if G is not None
-                  else lifted.zeros(g.dims, d, device=device), M, X0, cfg)
-    X = res.X
-    out = np.zeros((g.n, d, d + 1))
-    out[:, :, :d] = X.rot.cpu().numpy()
-    out[:, :, d] = X.trn.cpu().numpy()
-    if stats is not None:
-        stats["total_s"] = stats.get("total_s", 0.0) + \
-            time.perf_counter() - t_start
+        stats["init_s"] = stats.get("init_s", 0.0) + init.seconds
+        if "solve/build" in parts:
+            stats["build_s"] = stats.get("build_s", 0.0) + \
+                parts["solve/build"]
+        stats["total_s"] = stats.get("total_s", 0.0) + total.seconds
     return out
 
 

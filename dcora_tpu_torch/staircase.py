@@ -39,6 +39,7 @@ from dcora_tpu_torch.solvers import (
 )
 from dcora_tpu_torch.types import ROptParameters
 from dcora_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from dcora_tpu_torch.utils.timing import span
 
 logger = logging.getLogger(__name__)
 
@@ -57,7 +58,12 @@ class StaircaseResult:
     gradnorm_final: float = float("nan")
     cert_slack: float = float("nan")
     # wall seconds per stage: "solve", "certify", "escape", "round",
-    # "refine" (summed over ranks)
+    # "refine" (summed over ranks), each ending at a device sync; and the
+    # parts of the solve and certify stages, which their solvers add:
+    # "solve/build", "solve/tiles_f32", "solve/tiles_f64", "solve/edge"
+    # (solvers.rtr_fast) and "certify/blocks", "certify/lanczos",
+    # "certify/assemble", "certify/ldlt", "certify/host_eig"
+    # (certify.fast_verification)
     stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
@@ -89,17 +95,17 @@ def riemannian_staircase(
     dev = X0.device
     opt_params = opt_params or ROptParameters(
         gradnorm_tol=1e-4, RTR_iterations=200, RTR_tCG_iterations=200)
-    P = g.problem_data(device=dev)
-    M = make_preconditioner(g, P)
-    dims = g.dims
-    G_prior = prob.linear_term(P, None, dims.n, dims.l, dims.num_trans)
+    with span("staircase.setup"):
+        P = g.problem_data(device=dev)
+        M = make_preconditioner(g, P)
+        dims = g.dims
+        G_prior = prob.linear_term(P, None, dims.n, dims.l, dims.num_trans)
     stage: Dict[str, float] = {}
 
     def timed(name, fn, *args, **kw):
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        _sync(dev)
-        stage[name] = stage.get(name, 0.0) + time.perf_counter() - t0
+        with span(name, into=stage):
+            out = fn(*args, **kw)
+            _sync(dev)
         return out
 
     def G_at_rank(rr: int):
@@ -130,7 +136,7 @@ def riemannian_staircase(
         nonlocal TP
         if g.n >= FAST_PATH_MIN_POSES:
             res_, TP = rtr_fast(g, P, M, X_in, cfg, G=G_at_rank(r), TP=TP,
-                                skip_coarse=skip_coarse)
+                                skip_coarse=skip_coarse, stats=stage)
             return res_
         G = G_at_rank(r)
         return rtr(P, G if G is not None else lifted.zeros(dims, r,
@@ -176,14 +182,14 @@ def riemannian_staircase(
                         float(res.f_final), float(res.gradnorm_final))
         save(X, r)
 
-        t_cert = time.time()
+        cert_s = stage.get("certify", 0.0)
         is_psd, theta, v = timed(
             "certify", fast_verification, P, X, min_eig_num_tol,
             num_lanczos, TP=(TP.f32 if TP is not None else None),
-            generator=generator)
+            generator=generator, times=stage)
         if verbose:
             logger.info("rank %d: certification %.1fs (psd=%s)", r,
-                        time.time() - t_cert, is_psd)
+                        stage["certify"] - cert_s, is_psd)
         if is_psd:
             certified = True
             break
