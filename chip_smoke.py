@@ -2,17 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the six kernel libraries from ``dcora_tpu_torch/csrc/`` (the three
+Builds the seven kernel libraries from ``dcora_tpu_torch/csrc/`` (the three
 SpMM kernels, the edge path's deterministic segment sum, the
-block-tridiagonal preconditioner solve and the flat layout's per-pose ops;
+block-tridiagonal preconditioner solve, the flat layout's per-pose ops and
+the certificate's supernodal LDL^T, which the certified solves use;
 one nvcc per source, all started together; ``-Xptxas -v``'s registers and
 spills are printed) and holds
 every SpMM kernel against its plain PyTorch version on
 the card at the 10,648-pose grid's shapes, timed in turns with the library
 yardstick ``torch.sparse.mm`` on the same Q and beside the product's bound.
+Before that it holds the certificate's LDL^T kernel (``csrc/ldlt.cu``,
+through ``core.ldlt.DeviceFactor``) against its plain version
+(``ldlt.factor_plain`` on the host, the same analysis and values) on
+SE-Sync's grid3D pattern (the benchmark's 20^3 graph, k = 32,000: Q + eta I,
+positive definite, and S + eta I at a random state, indefinite) and on
+ra10k's S + eta I at its odometry init, pivots, negative count and verdict,
+and times it at grid3D's Q + eta I beside its plain version and its bound.
 Then it drives the port's paths, each with the kernels' launch counts set
 to 0 just before it and read just after (a launch recorded in a CUDA graph
-counts once per replay):
+counts once per replay); every path that certifies must have proved its
+certificate with the LDL^T kernel, whose launches are printed per path:
 
   * the certified single-robot PGO staircase of
     ``dcora_tpu_torch.drivers.single_robot_pgo.run(..., certify=True,
@@ -180,6 +189,18 @@ KERNELS = {
                      "weingarten_apply (:772, :792) and precondition_flat "
                      "(:860), not a Pallas kernel; ms, plain_ms and bound_ms "
                      "are one launch of each at grid10k f32 r_pad 8"),
+    # the port's own kernels (one library, three kernels issued by one C
+    # call): the JAX package proves the certificate with scipy's SuperLU on
+    # the host, so they replace no TPU kernel
+    "ldlt": dict(name="ldlt", route="cuda",
+                 source="dcora_tpu_torch/csrc/ldlt.cu",
+                 replaces="dcora_tpu/core/certify.py:366",
+                 note="port's own kernels ldlt_assemble, ldlt_panel and "
+                 "ldlt_update; replace the host's SuperLU call of "
+                 "ldl_psd_proof (dcora_tpu/core/certify.py:366, scipy), "
+                 "not a Pallas kernel; ms, plain_ms (factor_plain on the "
+                 "host) and bound_ms are one factorization of grid3D's "
+                 "Q + eta I; launches are those of every certified path"),
 }
 LIBRARY = "library"  # torch.sparse.mm on the full symmetric Q, CSR
 # relative to max|W|: a different summation order, plus f32 rounding
@@ -199,6 +220,12 @@ TCG_TOL = 1e-9
 # the segment-sum kernel against its plain version (index_add_ on the card,
 # float atomics), relative to max|out|: another order, plus f32 rounding
 SEG_TOL = {"float32": 1e-5, "float64": 1e-13}
+# the LDL^T kernel's pivots against its plain version's, relative to
+# max|pivot|: the kernel sums the panel solves and the rank-32 updates in
+# another order, on the f64 tensor cores (the CUDA tests hold it to the
+# same on small problems)
+LDLT_TOL = 1e-9
+LDLT_ETA = 1e-3  # the shift of the LDL^T phase: the certificate's eta
 # chordal init on the card against the CPU, relative to max|T| (two CG
 # solves to 1e-12 that sum in different orders)
 INIT_TOL = 1e-8
@@ -370,6 +397,121 @@ def hbm_gbs(torch):
 
     return common.nominal_hbm_gbs(torch.cuda.get_device_name(0)) or \
         common.NOMINAL_HBM_GBS[0][1]
+
+
+def ldlt_launches():
+    """Launches of csrc/ldlt.cu so far in this process."""
+    from dcora_tpu_torch.core import kernels
+
+    return kernels.launch_counts()["ldlt"]
+
+
+def ldlt_phase(torch, tmp, ra_path):
+    """[ldlt] The certificate's LDL^T kernel (csrc/ldlt.cu through
+    ldlt.DeviceFactor) against its plain version (ldlt.factor_plain on the
+    host, the same analysis and values) at the main path's shapes: SE-Sync's
+    grid3D pattern (the benchmark's 20^3 graph, k = 32,000) with Q + eta I
+    (positive definite) and S + eta I at a random rank-3 state
+    (indefinite), and ra10k's S + eta I at its odometry init (its sphere
+    and landmark columns).  The pivots within LDLT_TOL of max|pivot|, the
+    same negative count and verdict, two factorizations bitwise equal, the
+    launch count moved by the schedule's launches.  Timed at grid3D's
+    Q + eta I: the kernel (CUDA events, median of 3 turns of 10), the plain
+    version (one run on the host) and the bound (common.ldlt_bound_ms).
+    Returns the rows."""
+    import numpy as np
+
+    from dcora_tpu_torch import datasets
+    from dcora_tpu_torch.core import certify, ldlt, lifted
+    from dcora_tpu_torch.core.graph import LocalGraph
+    from dcora_tpu_torch.drivers.single_robot_raslam import (
+        odometry_init_global)
+    from dcora_tpu_torch.io import read_g2o_file, read_pyfg_file
+    from dcora_tpu_torch.io.remap import get_global_measurements
+    from dcora_tpu_torch.tools import common
+    from dcora_tpu_torch.types import GraphType
+
+    path = datasets.generate_grid_g2o(os.path.join(tmp, "grid3d.g2o"),
+                                      shape=(20, 20, 20), loop_prob=0.962,
+                                      seed=199)
+    g = LocalGraph(0, 3, 3)
+    g.set_measurements(read_g2o_file(path).pose_pose_measurements)
+    P, dims = g.problem_data(), g.dims
+    rng = np.random.default_rng(7)
+    X = lifted.RAState(
+        rot=torch.as_tensor(np.linalg.qr(rng.standard_normal(
+            (dims.n, 3, 3)))[0]),
+        sph=torch.zeros((0, 3), dtype=torch.float64),
+        trn=torch.as_tensor(rng.standard_normal((dims.num_trans, 3))))
+    ds = read_pyfg_file(ra_path)
+    gm = get_global_measurements(ds)
+    gr = LocalGraph(0, 3, 3, GraphType.RangeAidedSLAMGraph)
+    gr.set_measurements(gm.relative_measurements)
+    cases = {
+        "grid3D Q + eta I": (certify._Q_host(P, dims), dims, True),
+        "grid3D S + eta I, random state": (certify._assemble_S_host(
+            P, certify.dual_certificate_blocks(P, X), dims), dims, False),
+        "ra10k S + eta I, odometry init": (certify._assemble_S_host(
+            gr.problem_data(), certify.dual_certificate_blocks(
+                gr.problem_data(), odometry_init_global(ds, gm)),
+            gr.dims), gr.dims, False),
+    }
+    rows = []
+    for name, (S, sdims, expect) in cases.items():
+        timed = name == "grid3D Q + eta I"
+        t0 = time.perf_counter()
+        an = ldlt.analyse(S, sdims)
+        analyse_s = time.perf_counter() - t0
+        plan = ldlt.DeviceFactor(an, "cuda")
+        vals = torch.as_tensor(S.data, device="cuda")
+        before = ldlt_launches()
+        got = plan.factor(vals, LDLT_ETA).clone()
+        plan.fronts.fill_(float("nan"))  # nothing may be read unwritten
+        again = plan.factor(vals, LDLT_ETA).clone()
+        require(ldlt_launches() - before == 2 * len(an.launches),
+                f"[ldlt] {name}: the launch count did not move by the "
+                f"schedule's {len(an.launches)} launches a factorization")
+        t0 = time.perf_counter()
+        want = ldlt.factor_plain(an, torch.as_tensor(S.data), LDLT_ETA)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        got = got.cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        neg = (int((got < 0).sum()), int((want < 0).sum()))
+        verdicts = (ldlt.verdict(got), ldlt.verdict(want))
+        row = dict(kernel="ldlt", problem=name, dtype="float64", r_pad=None,
+                   live=None, max_abs_err=err, ms=None, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=None, bound_by=None)
+        bound = common.ldlt_bound_ms(an, hbm_gbs(torch))
+        timing = ""
+        if timed:
+            ms = common.time_turns_ms(
+                [lambda: plan.factor(vals, LDLT_ETA)], n=10)[0]  # noqa: B023
+            row.update(ms=ms, bound_ms=bound[0], bound_by=bound[1])
+            timing = (f"; kernel {ms:.3f} ms a factorization (CUDA events, "
+                      f"median of 3 turns of 10), bound {bound[0]:.4f} ms "
+                      f"({bound[1]}, {bound[0] / ms:.1%} of it)")
+        rows.append(row)
+        phase(f"[ldlt] {name}: k={S.shape[0]} nnz(S)={S.nnz} "
+              f"nnz(L)={an.nnz_L} {common.ldlt_ops(an):.4g} operations, "
+              f"{len(an.first)} supernodes in {int(an.level.max()) + 1} "
+              f"levels, largest front {int(an.size.max())}, "
+              f"{len(an.launches)} launches, fronts "
+              f"{8 * an.front_words / 1e9:.3f} GB; analysis "
+              f"{analyse_s:.3f}s; verdict {verdicts[0]} (plain "
+              f"{verdicts[1]}), negative pivots {neg[0]} (plain {neg[1]}), "
+              f"max|pivot - plain| {err:.2e} of max|pivot|; plain version "
+              f"{plain_ms:.0f} ms on the host{timing}")
+        require(torch.equal(got, again.cpu()),
+                f"[ldlt] {name}: two factorizations differ")
+        require(err <= LDLT_TOL, f"[ldlt] {name}: the pivots differ from "
+                f"the plain version's: {err:.2e} > {LDLT_TOL:.0e}")
+        require(neg[0] == neg[1] and verdicts[0] == verdicts[1],
+                f"[ldlt] {name}: the inertia differs from the plain "
+                f"version's")
+        require(verdicts[0] is expect, f"[ldlt] {name}: verdict "
+                f"{verdicts[0]}, expected {expect}")
+        del plan, vals
+    return rows
 
 
 def kernel_phase(torch, path10k):
@@ -727,16 +869,19 @@ def slice_phase(torch, name, path, ref):
     from dcora_tpu_torch.verification import verify_solution
 
     res = {}
+    before = ldlt_launches()
     t0 = time.perf_counter()
     T, f = run(path, certify=True, device="cuda", verbose=False, result=res)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    n_ldlt = ldlt_launches() - before
     st = res["staircase"]
     require(st.X.rot.is_cuda and st.rounded.rot.is_cuda,
             f"{name}: state tensors are not on CUDA")
     require(T.shape == (ref["n"], 3, 4) and bool(np.isfinite(T).all()),
             f"{name}: bad trajectory shape or values")
     require(st.certified, f"{name}: not certified")
+    require(n_ldlt > 0, f"{name}: certified without the LDL^T kernel")
     require(st.final_rank == ref["rank"],
             f"{name}: rank {st.final_rank} != reference {ref['rank']}")
     rel = abs(f - ref["f"]) / abs(ref["f"])
@@ -751,11 +896,12 @@ def slice_phase(torch, name, path, ref):
     sha = common.state_sha256(st.X)
     phase(f"[slice] {name}: n={ref['n']} certified={st.certified} "
           f"rank={st.final_rank} f*={f!r} (reference {ref['f']!r}, rel "
-          f"{rel:.1e}) ldl_witness=True wall={wall:.2f}s "
+          f"{rel:.1e}) ldl_witness=True ldlt_launches={n_ldlt} "
+          f"wall={wall:.2f}s "
           f"(init {res['init_s']:.2f}s, staircase "
           f"{res['staircase_s']:.2f}s: {stages}) "
           f"verify={time.perf_counter() - t1:.2f}s x_sha256={sha}")
-    return wall, sha
+    return wall, sha, n_ldlt
 
 
 def paired_phase(torch, path, ref):
@@ -769,7 +915,8 @@ def paired_phase(torch, path, ref):
     products, restore = counting_products(tiled)
     try:
         spmm.reset_launches()
-        wall, sha = slice_phase(torch, "grid10k paired pack", path, ref)
+        wall, sha, _ = slice_phase(torch, "grid10k paired pack", path,
+                                   ref)
         counts = spmm.launch_counts()
     finally:
         restore()
@@ -1157,6 +1304,8 @@ def raslam_phase(torch, name, path, ref, r_max):
             f"{name}: the RA solve launched another SpMM kernel: {counts}")
     require(counts["btd_solve"] > 0, f"{name}: the RA tile phases never "
             f"launched the BTD kernel: {counts}")
+    require(counts["ldlt"] > 0 or not st.certified,
+            f"{name}: certified without the LDL^T kernel: {counts}")
     t1 = time.perf_counter()
     rep = verify_solution(gm.relative_measurements, st.X, 3, eta=RA_ETA)
     verify_s = time.perf_counter() - t1
@@ -1460,24 +1609,32 @@ def g2o100k_phase(torch, tmp):
 def parity_phase(torch, tmp):
     """[parity] tools.parity.run_config on tinyGrid3D and smallGrid3D (the
     generated test sets) on the card: the staircase, rounding and the
-    independent verifier, whose LDL^T witness must certify."""
+    independent verifier, whose LDL^T witness must certify; the port's own
+    proof must run the LDL^T kernel.  Returns its launches per set."""
     from dcora_tpu_torch import datasets
     from dcora_tpu_torch.tools import parity
 
     data = datasets.ensure_test_datasets(os.path.join(tmp, "parity_data"))
+    launches = {}
     for name in ("tinyGrid3D", "smallGrid3D"):
         t0 = time.perf_counter()
+        before = ldlt_launches()
         rec = parity.run_config(name, data, "cuda", state_dir=os.path.join(
             tmp, "parity_state"), checkpoint_dir=tmp)
+        launches[f"parity {name}"] = ldlt_launches() - before
         phase(f"[parity] {name}: certified={rec['certified']} "
               f"certified_indep={rec['certified_indep']} rank="
               f"{rec['final_rank']} f*={rec['f_final']!r} (scipy "
               f"{rec['f_indep']!r}), indep gradnorm "
               f"{rec['gradnorm_indep']:.2e}, ATE {rec.get('ate_vs_gt')}, "
-              f"platform {rec['platform']!r}, "
+              f"platform {rec['platform']!r}, ldlt launches "
+              f"{launches[f'parity {name}']}, "
               f"{time.perf_counter() - t0:.2f}s")
         require(rec["certified_indep"] is True and rec["certified"],
                 f"[parity] {name} is not certified")
+        require(launches[f"parity {name}"] > 0,
+                f"[parity] {name}: certified without the LDL^T kernel")
+    return launches
 
 
 def _robust_refs():
@@ -1789,7 +1946,8 @@ def mr_ra_phase(torch, name, path, refs):
     map agent never shares (the driver gives it no measurements), so its
     cost stays at the initial estimate's.  ra500_nl is ra500 without its
     landmarks: the robots range to each other only, every block optimizes
-    and the cost must fall.  Returns the wall."""
+    and the cost must fall.  A certificate must run the LDL^T kernel.
+    Returns (the wall, its launches)."""
     import numpy as np
 
     from dcora_tpu_torch.drivers import multi_robot_raslam
@@ -1798,6 +1956,7 @@ def mr_ra_phase(torch, name, path, refs):
     from dcora_tpu_torch.verification import verify_solution
 
     ref = refs["mr_" + name]
+    before = ldlt_launches()
     t0 = time.perf_counter()
     res = multi_robot_raslam.run(path, device="cuda",
                                  lifting_matrix=_lifting(refs),
@@ -1805,6 +1964,7 @@ def mr_ra_phase(torch, name, path, refs):
                                  r_max=ref["r_max"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    n_ldlt = ldlt_launches() - before
     trace, rounds = np.array(res.cost_trace), len(res.cost_trace)
     require(rounds == ref["rounds"] == len(ref["cost_trace"]),
             f"DCORA {name}: {rounds} rounds, JAX {ref['rounds']}")
@@ -1818,8 +1978,11 @@ def mr_ra_phase(torch, name, path, refs):
           f"-> {float(trace[-1])!r} (JAX {ref['f']!r}), per round against JAX's: max "
           f"rel {rels.max():.1e}; verifier at the result: certified="
           f"{rep['certified_indep']}, gradnorm {rep['gradnorm_indep']:.3e}; "
+          f"ldlt launches {n_ldlt}; "
           f"wall {wall:.2f}s, {1e3 * res.rbcd_s / max(rounds, 1):.3f} "
           f"ms per round")
+    require(n_ldlt > 0 or not res.certified,
+            f"DCORA {name}: certified without the LDL^T kernel")
     require(res.X.rot.is_cuda, f"DCORA {name}: the state is not on the card")
     require(res.certified == ref["certified"]
             and res.final_rank == ref["rank"],
@@ -1832,7 +1995,7 @@ def mr_ra_phase(torch, name, path, refs):
     if name == "ra500_nl":
         require(trace[-1] < 1e-3 * trace[0],
                 f"DCORA {name}: the cost did not fall")
-    return wall
+    return wall, n_ldlt
 
 
 def _cost_trace(res):
@@ -2184,7 +2347,8 @@ def par_certify_phase(torch, path10k, X10k, mr):
     rounds (1e-12 of max|S v| at f64); fast_verification_sharded at
     DC2-PGO's certified smallGrid3D optimum ([multi-robot]) certifies, and
     minimum_eigen_pair_sharded there agrees with the central
-    minimum_eigen_pair (PAR_EIG_TOL of the largest-magnitude eigenvalue)."""
+    minimum_eigen_pair (PAR_EIG_TOL of the largest-magnitude eigenvalue).
+    Returns the LDL^T kernel's launches of the sharded verification."""
     import numpy as np
 
     from dcora_tpu_torch.core import certify, lifted
@@ -2215,9 +2379,11 @@ def par_certify_phase(torch, path10k, X10k, mr):
     gs = LocalGraph(0, res.final_rank, 3)
     gs.set_measurements(read_g2o_file(path).pose_pose_measurements)
     Ps = gs.problem_data(device="cuda")
+    before = ldlt_launches()
     t0 = time.perf_counter()
     ok, theta, _ = fast_verification_sharded(Ps, res.X, 1e-3, PAR_AGENTS)
     t_ver = time.perf_counter() - t0
+    n_ldlt = ldlt_launches() - before
     Cs = certify.dual_certificate_blocks(Ps, res.X)
     lam_s, _, _ = minimum_eigen_pair_sharded(Ps, Cs, res.X.dims, PAR_AGENTS)
     lam_c, _, _ = certify.minimum_eigen_pair(Ps, Cs, res.X.dims)
@@ -2231,12 +2397,16 @@ def par_certify_phase(torch, path10k, X10k, mr):
     phase(f"[parallel certify] grid10k S matvec over {PAR_AGENTS} edge "
           f"shards against apply_S: rel {err:.1e}; DC2-PGO's smallGrid3D "
           f"optimum (rank {res.final_rank}): sharded verification certified="
-          f"{ok} ({t_ver:.2f}s), lambda_min sharded {lam_s!r} vs central "
+          f"{ok} ({t_ver:.2f}s, ldlt launches {n_ldlt}), lambda_min "
+          f"sharded {lam_s!r} vs central "
           f"{lam_c!r} (diff {diff:.1e} of |lambda_lm| = {abs(lam_lm):.4g})")
     require(ok, "the sharded verification does not certify DC2-PGO's "
             "optimum")
+    require(n_ldlt > 0, "the sharded verification certified without the "
+            "LDL^T kernel")
     require(diff <= PAR_EIG_TOL, f"sharded lambda_min {lam_s} vs central "
             f"{lam_c}")
+    return n_ldlt
 
 
 def par_scaling_phase(torch, path):
@@ -2321,7 +2491,8 @@ def main() -> int:
             for k, (v, _) in RA_SETS.items())
             + ", ra500_nl (PyFG, ra500 without landmarks)")
 
-        rows = kernel_phase(torch, paths["grid10k"])
+        rows = ldlt_phase(torch, tmp, paths["ra10k"])
+        rows += kernel_phase(torch, paths["grid10k"])
         init_phase(torch, paths["grid10k"])
         g2o_rows, g2o_counts = g2o100k_phase(torch, tmp)
         rows += g2o_rows
@@ -2329,9 +2500,9 @@ def main() -> int:
         products, restore = counting_products(tiled)
         try:
             spmm.reset_launches()
-            walls = {name: slice_phase(torch, name, paths[name],
-                                       refs[name])[0]
-                     for name in ("smallGrid3D", "grid10k")}
+            slices = {name: slice_phase(torch, name, paths[name],
+                                        refs[name])
+                      for name in ("smallGrid3D", "grid10k")}
             counts = spmm.launch_counts()
         finally:
             restore()
@@ -2345,9 +2516,11 @@ def main() -> int:
         require(counts["segment_sum"] > 0, f"the PGO solves' edge path "
                 f"never launched the segment-sum kernel: {counts}")
         phase(f"[launches] default pack: {counts}, {products[0]} tile "
-              f"products (10,648-pose grid wall {walls['grid10k']:.2f}s)")
-        parity_phase(torch, tmp)
+              f"products (10,648-pose grid wall {slices['grid10k'][0]:.2f}s)")
+        ldlt_paths = {f"pgo {k}": v[2] for k, v in slices.items()}
+        ldlt_paths.update(parity_phase(torch, tmp))
         paired = paired_phase(torch, paths["grid10k"], refs["grid10k"])
+        ldlt_paths["paired pgo"] = paired["ldlt"]
         benched = bench_phase(torch, paths["grid10k"])
         gnc_counts, gnc_ms, _ = gnc_phase(torch, tmp, robust_refs)
         phase(f"[launches] gnc2500: {gnc_counts}")
@@ -2359,9 +2532,13 @@ def main() -> int:
         phase(f"[launches] DC2-PGO: {mr_counts}")
         require(mr_counts["segment_sum"] > 0, "DC2-PGO never launched the "
                 "segment-sum kernel")
+        require(mr_counts["ldlt"] > 0, "DC2-PGO certified without the "
+                "LDL^T kernel")
+        ldlt_paths["DC2-PGO"] = mr_counts["ldlt"]
         dist_gnc_phase(torch, tmp, robust_refs)
         for name in ("ra500", "ra500_nl"):
-            mr_ra_phase(torch, name, paths[name], robust_refs)
+            ldlt_paths[f"DCORA {name}"] = mr_ra_phase(
+                torch, name, paths[name], robust_refs)[1]
         # the parallel scaling mode
         paths["ra10k_nl"] = datasets.generate_ra_slam_pyfg(
             os.path.join(tmp, "ra10k_nl.pyfg"), poses_per_robot=1950,
@@ -2379,7 +2556,8 @@ def main() -> int:
         rows += par_kernel_phase(torch, pp10k)
         par_ra_counts = par_ra_phase(torch, paths, par_refs)
         par_dist_phase(torch, pp10k, par_a.X_stack)
-        par_certify_phase(torch, paths["grid10k"], par_a.X, mr)
+        ldlt_paths["parallel certify"] = par_certify_phase(
+            torch, paths["grid10k"], par_a.X, mr)
         par_scaling_phase(torch, paths["grid10k"])
         ra_rows, tps = ra_kernel_phase(torch, paths["ra10k"])
         rows += ra_rows
@@ -2396,6 +2574,7 @@ def main() -> int:
                                     ra_refs.get(name), r_max)
             phase(f"[launches] {name}: {ra[name][0]} (wall "
                   f"{ra[name][1]:.2f}s)")
+            ldlt_paths[name] = ra[name][0]["ldlt"]
 
     elapsed = time.perf_counter() - t_start
     # the row each kernel's path launches most: f64 at r_pad 8 on the grid
@@ -2421,7 +2600,8 @@ def main() -> int:
                     segment_sum=sum(c["segment_sum"] for c in path_counts),
                     btd_solve=sum(c["btd_solve"] for c in path_counts),
                     flat_ops=sum(c["flat_rhess"] + c["flat_precond"]
-                                 for c in path_counts))
+                                 for c in path_counts),
+                    ldlt=sum(ldlt_paths.values()))
     phase("[launches] spmm_sym per path: " + ", ".join(
         [f"pgo {counts['spmm_sym']}", f"gnc2500 {gnc_counts['spmm_sym']}",
          f"gnc agent init {agent_counts['spmm_sym']}"]
@@ -2444,6 +2624,11 @@ def main() -> int:
     for kern in ("segment_sum", "btd_solve", "flat_rhess", "flat_precond"):
         phase(f"[launches] {kern} per path: " + ", ".join(
             f"{k} {c[kern]}" for k, c in zip(path_names, path_counts)))
+    # every path that certified proved with the LDL^T kernel (required in
+    # its phase); one that did not certify (ra10k runs its first rank only)
+    # may not have reached the proof
+    phase("[launches] ldlt per certified path: " + ", ".join(
+        f"{k} {v}" for k, v in ldlt_paths.items()))
     main_dtype = dict(spmm_sym="float64", spmm_tile="float32",
                       spmm_paired="float64")
     entries = []
@@ -2455,6 +2640,9 @@ def main() -> int:
         elif name == "btd_solve":  # the RA f32 tile phase's application
             main_row = next(r for r in mine if r["dtype"] == "float32"
                             and r["r_pad"] == 8)
+        elif name == "ldlt":  # one factorization of grid3D's Q + eta I
+            main_row = next(r for r in mine
+                            if r["problem"] == "grid3D Q + eta I")
         elif name == "flat_ops":  # grid10k's f32 tile phase: one of each
             parts = {k: next(r for r in rows if r["kernel"] == k
                              and r["problem"] == "grid10k"

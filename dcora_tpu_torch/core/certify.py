@@ -10,8 +10,11 @@ following the SE-Sync spectrum-shifting strategy (DCORA_utils.cpp:1807-1896):
   2. Otherwise run Lanczos on S - 2*lambda_lm*I (all eigenvalues negative);
      its largest-magnitude eigenvalue + 2*lambda_lm is lambda_min(S).
 
-A PSD verdict is confirmed on the host by an LDL^T inertia proof (scipy,
-unchanged from the JAX package).  Also the saddle-escape line search
+A PSD verdict is confirmed by an LDL^T inertia proof of S + eta*I, with
+S assembled on the host: where the problem's tensors live on CUDA, a
+supernodal LDL^T on the card (``core/ldlt.py``, ``csrc/ldlt.cu``; the
+sparsity analysed once on the host); on the CPU, scipy's SuperLU,
+unchanged from the JAX package.  Also the saddle-escape line search
 (QuadraticProblem.cpp:138-234) and rank-d rounding (DCORA_utils.cpp:
 1984-2031).
 
@@ -28,7 +31,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from dcora_tpu_torch.core import lifted, problem as prob, tiled
+from dcora_tpu_torch.core import ldlt, lifted, problem as prob, tiled
 from dcora_tpu_torch.core.lifted import RAState
 from dcora_tpu_torch.core.manifold import (
     oblique_project,
@@ -253,7 +256,9 @@ def minimum_eigen_pair_tiled(TP, X: RAState, num_lanczos: int = 64,
 
 
 # --------------------------------------------------------------------------
-# Host (scipy) certification, unchanged from the JAX package
+# Exact certification: S assembled on the host (scipy); its LDL^T inertia
+# proof on the card for a CUDA problem (core/ldlt.py), else SuperLU on the
+# host as in the JAX package; ARPACK / LOBPCG on the host
 # --------------------------------------------------------------------------
 
 
@@ -327,21 +332,43 @@ def ldl_psd_proof(S) -> Optional[bool]:
     return None
 
 
-def _inertia_bracket_min_eig(S, eta: float, max_doublings: int = 40,
-                             bisections: int = 10,
-                             times: Optional[dict] = None):
-    """Bracket -lambda_min(S) with the LDL^T inertia oracle, given that
-    S + eta*I is proven indefinite: double t until S + t*I factors PD, then
-    bisect.  Returns (lo, hi) or None.  Each factorization is a span
-    "certify/ldlt" into `times`."""
+def _host_proof(S):
+    """prove(t): SuperLU's LDL^T verdict on S + t*I (ldl_psd_proof)."""
     import scipy.sparse as sp
 
     eye = sp.identity(S.shape[0], format="csc")
+    return lambda t: ldl_psd_proof(S + t * eye)
+
+
+def _shifted_proof(S, dims: ProblemDims, device, times=None):
+    """prove(t) for the shifts of one S in _min_eig_host: on a CUDA device
+    the supernodal LDL^T on the card (analysis and upload once), else
+    SuperLU (each proof counted "ldlt.host")."""
+    if torch.device(device).type == "cuda":
+        return ldlt.ShiftedProof(S, dims, device, times)
+    superlu = _host_proof(S)
+
+    def prove(t):
+        count("ldlt.host")
+        return superlu(t)
+
+    return prove
+
+
+def _inertia_bracket_min_eig(S, eta: float, max_doublings: int = 40,
+                             bisections: int = 10,
+                             times: Optional[dict] = None, prove=None):
+    """Bracket -lambda_min(S) with the LDL^T inertia oracle, given that
+    S + eta*I is proven indefinite: double t until S + t*I factors PD, then
+    bisect.  Returns (lo, hi) or None.  `prove(t)` is the oracle's verdict
+    on S + t*I (default: SuperLU on the host); each call is a span
+    "certify/ldlt" into `times`."""
+    prove = prove or _host_proof(S)
     lo, hi = eta, None
     t = max(2.0 * eta, 1e-10)
     for _ in range(max_doublings):
         with span("certify/ldlt", into=times):
-            pr = ldl_psd_proof(S + t * eye)
+            pr = prove(t)
         if pr is True:
             hi = t
             break
@@ -353,7 +380,7 @@ def _inertia_bracket_min_eig(S, eta: float, max_doublings: int = 40,
     for _ in range(bisections):
         mid = 0.5 * (lo + hi)
         with span("certify/ldlt", into=times):
-            pr = ldl_psd_proof(S + mid * eye)
+            pr = prove(mid)
         if pr is True:
             hi = mid
         elif pr is False:
@@ -369,7 +396,9 @@ def _min_eig_host(P: ProblemData, C: Certificate, dims: ProblemDims,
     """Fail-closed host check of lambda_min(S) >= -eta.
 
     Returns (certified, rayleigh, v):
-      1. LDL^T proof of S + eta*I (an actual factorization witness);
+      1. LDL^T proof of S + eta*I (an actual factorization witness): on the
+         card when P's tensors live on CUDA (core/ldlt.py: one analysis
+         for every shift of this call), else SuperLU;
       2. otherwise ARPACK on shift*I - S with an explicit residual check,
          LOBPCG fallback;
       3. fail closed: never certify from an unconverged vector.
@@ -380,8 +409,10 @@ def _min_eig_host(P: ProblemData, C: Certificate, dims: ProblemDims,
     process, so the same S gives another estimate (in its last digits) on
     every call.  The JAX package leaves two of the calls unseeded.
 
-    The assembly, each LDL^T factorization and the eigensolvers are spans
-    "certify/assemble", "certify/ldlt" and "certify/host_eig" into `times`.
+    The assembly, each LDL^T proof (the card's: analysis, upload,
+    factorization and read-back) and the eigensolvers are spans
+    "certify/assemble", "certify/ldlt" and "certify/host_eig" into `times`;
+    the analysis is also "certify/ldlt_analyse".
     """
     import scipy.sparse as sp
     from scipy.sparse.linalg import ArpackNoConvergence, eigsh, lobpcg
@@ -393,15 +424,16 @@ def _min_eig_host(P: ProblemData, C: Certificate, dims: ProblemDims,
 
     if eta > 0:
         logging.getLogger(__name__).info(
-            "host LDL^T proof of S + eta I: k=%d, nnz=%d", k, S.nnz)
+            "LDL^T proof of S + eta I: k=%d, nnz=%d", k, S.nnz)
+        prove = _shifted_proof(S, dims, C.rot_blocks.device, times)
         with span("certify/ldlt", into=times):
-            proof = ldl_psd_proof(S + eta * sp.identity(k, format="csr"))
+            proof = prove(eta)
         if proof is True:
             return True, 0.0, None
         if proof is False:
             # inertia PROVES lambda_min < -eta; bracket it and pull an
             # escape direction by shift-invert inside the bracket
-            br = _inertia_bracket_min_eig(S, eta, times=times)
+            br = _inertia_bracket_min_eig(S, eta, times=times, prove=prove)
             if br is not None:
                 lo, hi = br
                 sigma = -0.5 * (lo + hi)
@@ -467,8 +499,9 @@ def fast_verification(P: ProblemData, X: RAState, eta: float,
     Returns (is_psd, theta, min_eigenvector [k] tensor) where theta =
     v^T S v for the estimated minimum eigenvector (0, None when certified).
     "Not PSD" is proven by an exact f64 Rayleigh quotient; "PSD" is
-    confirmed by the host LDL^T check.  With TP (a tiled.TiledProblem) the
-    search first runs on the tiled operator through the SpMM kernel.
+    confirmed by the LDL^T check (_min_eig_host).  With TP (a
+    tiled.TiledProblem) the search first runs on the tiled operator through
+    the SpMM kernel.
     Its steps are spans "certify/<part>" (blocks, lanczos, assemble, ldlt,
     host_eig) into `times`.
     """

@@ -6,9 +6,11 @@ use with ``nvcc`` into ``dcora_tpu_torch/build/`` and loaded with ctypes;
 :func:`build_all` builds every library with one ``nvcc`` per source, all
 started together.  Nothing is compiled or loaded on import.  The wrappers
 live in ``core/spmm.py`` (the SpMM kernels), ``core/segment.py`` (the
-edge path's segment sum) and ``core/tiled.py`` (the block-tridiagonal
+edge path's segment sum), ``core/tiled.py`` (the block-tridiagonal
 preconditioner solve and the flat layout's per-pose ops, two kernels of
-``csrc/flat_ops.cu``); each imports this module.
+``csrc/flat_ops.cu``) and ``core/ldlt.py`` (the certificate's supernodal
+LDL^T, three kernels of ``csrc/ldlt.cu`` issued by one C call, counted
+per launch); each imports this module.
 
 Each wrapper counts its launches (:func:`count_launch`,
 :func:`launch_counts`).  A launch issued while a CUDA graph is being
@@ -142,6 +144,8 @@ _SOURCES = {
     "flat_ops": ({f"dcora_{k}_{t}": [_P] * 2
                   for k in ("flat_rhess", "flat_precond")
                   for t in ("f32", "f64")}, [], []),
+    "ldlt": ({"dcora_ldlt_factor_f64": [_P, _P, _I, ctypes.c_double, _P]},
+             [], []),
 }
 _LIBRARIES: Dict[str, _Library] = {}
 _LIBRARIES_LOCK = threading.Lock()
@@ -198,7 +202,7 @@ def check_launch(name: str, err: int):
 # --------------------------------------------------------------------------
 
 KERNELS = ("spmm_sym", "spmm_symmetric", "spmm_paired", "segment_sum",
-           "btd_solve", "flat_rhess", "flat_precond")
+           "btd_solve", "flat_rhess", "flat_precond", "ldlt")
 _WRAPPERS: Dict[str, object] = {}
 
 

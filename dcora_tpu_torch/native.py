@@ -166,6 +166,18 @@ def _declare(lib) -> None:
     lib.dcora_pyfg_free.restype = None
     lib.dcora_pyfg_free.argtypes = [ct.c_void_p]
 
+    lib.dcora_ldlt_analyse.restype = ct.c_void_p
+    lib.dcora_ldlt_analyse.argtypes = [ct.c_int64, _i64p, _i64p, _i64p,
+                                       ct.c_char_p, ct.c_int]
+    lib.dcora_ldlt_sizes.restype = None
+    lib.dcora_ldlt_sizes.argtypes = [ct.c_void_p, _i64p]
+    lib.dcora_ldlt_get.restype = None
+    lib.dcora_ldlt_get.argtypes = [ct.c_void_p] + [_i64p] * 6
+    lib.dcora_ldlt_free.restype = None
+    lib.dcora_ldlt_free.argtypes = [ct.c_void_p]
+    lib.dcora_ldlt_place.restype = ct.c_int
+    lib.dcora_ldlt_place.argtypes = [ct.c_int64] + [_i64p] * 5
+
     lib.dcora_jacobi_precond.restype = ct.c_int
     lib.dcora_jacobi_precond.argtypes = [
         ct.c_int64, ct.c_int64, ct.c_int64, ct.c_int, ct.c_double,
@@ -384,3 +396,58 @@ def jacobi_precond(n: int, nsph: int, nlmk: int, d: int, reg: float,
     if rc != 0:
         raise ValueError("preconditioner pose block not positive definite")
     return pose_inv, sph_diag, lmk_diag
+
+
+# --------------------------------------------------------------------------
+# symbolic analysis of the LDL^T inertia proof
+# --------------------------------------------------------------------------
+
+
+def ldlt_analyse(adj_ptr, adj_idx, weight):
+    """Ordering and supernodal symbolic analysis of a variable graph
+    (``native/src/ldlt_analyse.cpp``): the symmetric adjacency (adj_ptr,
+    adj_idx) of nn nodes without self loops, each node weighing its number
+    of scalar columns.  Returns (perm, sn_ptr, sn_parent, sn_level, rs_ptr,
+    rs_idx) as int64 arrays in node positions (perm[k] = the node placed
+    k-th), or None when the native library is unavailable."""
+    lib = get_library()
+    if lib is None:
+        return None
+    adj_ptr = np.ascontiguousarray(adj_ptr, np.int64)
+    adj_idx = np.ascontiguousarray(adj_idx, np.int64)
+    weight = np.ascontiguousarray(weight, np.int64)
+    nn = len(weight)
+    err = ct.create_string_buffer(512)
+    h = lib.dcora_ldlt_analyse(nn, adj_ptr, adj_idx, weight, err, len(err))
+    if not h:
+        raise MemoryError(err.value.decode())
+    try:
+        sizes = np.zeros(2, np.int64)
+        lib.dcora_ldlt_sizes(h, sizes)
+        ns, nrs = (int(x) for x in sizes)
+        out = (np.empty(nn, np.int64), np.empty(ns + 1, np.int64),
+               np.empty(ns, np.int64), np.empty(ns, np.int64),
+               np.empty(ns + 1, np.int64), np.empty(nrs, np.int64))
+        lib.dcora_ldlt_get(h, *out)
+        return out
+    finally:
+        lib.dcora_ldlt_free(h)
+
+
+def ldlt_place(order, gsize, gfrom, guntil):
+    """Offsets of groups of fronts in one buffer
+    (``native/src/ldlt_analyse.cpp``, dcora_ldlt_place): group g holds
+    gsize[g] words alive from level gfrom[g] to guntil[g]; placed in
+    `order` (gfrom ascending), each first-fit beside the groups whose lives
+    overlap its own.  Returns the int64 offsets, or None when the native
+    library is unavailable."""
+    lib = get_library()
+    if lib is None:
+        return None
+    order, gsize, gfrom, guntil = (np.ascontiguousarray(a, np.int64)
+                                   for a in (order, gsize, gfrom, guntil))
+    goff = np.zeros(len(gsize), np.int64)
+    if lib.dcora_ldlt_place(len(order), order, gsize, gfrom, guntil,
+                            goff) != 0:
+        raise ValueError("ldlt_place: the order is not by first level")
+    return goff

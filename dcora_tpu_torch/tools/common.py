@@ -1,5 +1,6 @@
 """Helpers shared by the port's tools and chip_smoke.py: the card's identity,
-CUDA-event timing, the SpMM's and the BTD solve's bounds, the SpMM's
+CUDA-event timing, the SpMM's, the BTD solve's, the flat ops' and the
+LDL^T's bounds, the SpMM's
 library yardstick, the default generated 10,648-pose grid, the generated
 RA-SLAM sets and the edge path's tCG solve on them.
 
@@ -27,6 +28,9 @@ NOMINAL_HBM_GBS = (("H100 80GB HBM3", 3350.0), ("H100 NVL", 3900.0),
 # peak FLOP/s of one H100 SXM outside the tensor cores (NVIDIA data sheet,
 # 700 W): the SpMM uses no matrix instruction
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# peak f64 FLOP/s of one H100 SXM on the tensor cores (DMMA; NVIDIA data
+# sheet, 700 W): csrc/ldlt.cu's panel updates are mma.sync f64
+PEAK_DMMA_F64 = 67e12
 
 
 def require_cuda(tool: str):
@@ -309,6 +313,32 @@ def btd_bound_ms(nt: int, T: int, r_pad: int, dtype: torch.dtype,
     esize = torch.empty((), dtype=dtype).element_size()
     bytes_ms = (2 * nt * T * T + 2 * r_pad * nt * T) * esize / (hbm_gbs * 1e6)
     ops_ms = 3.0 * nt * 2.0 * r_pad * T * T / PEAK_FLOPS[dtype] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                            "operations")
+
+
+def ldlt_ops(an) -> float:
+    """The f64 operations of the supernodal LDL^T of an analysis
+    (core.ldlt.Analysis): the sum over L's columns of the squared count of
+    their entries below the diagonal, (f - 1 - j)^2 for column j of a
+    supernode with f rows in its front (each such column's rank-1 update
+    of the lower triangle below it, a multiply-add per entry)."""
+    f = an.size.astype(np.float64)
+    lo = f - an.width  # the smallest count, at a supernode's last column
+
+    def squares(m):  # 0^2 + 1^2 + ... + (m - 1)^2
+        return (m - 1) * m * (2 * m - 1) / 6.0
+
+    return float((squares(f) - squares(lo)).sum())
+
+
+def ldlt_bound_ms(an, hbm_gbs: float) -> Tuple[float, str]:
+    """The least time one factorization of csrc/ldlt.cu could take on the
+    card, and what sets it: the larger of its operations (ldlt_ops) over
+    the f64 tensor cores' peak and L's entries (an.nnz_L, f64) written once
+    over the HBM rate."""
+    ops_ms = ldlt_ops(an) / PEAK_DMMA_F64 * 1e3
+    bytes_ms = an.nnz_L * 8 / (hbm_gbs * 1e6)
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                             "operations")
 

@@ -103,7 +103,7 @@ def test_record_fields(port_record):
     assert rec["launches"] == {"spmm_sym": 0, "spmm_symmetric": 0,
                                "spmm_paired": 0, "segment_sum": 0,
                                "btd_solve": 0, "flat_rhess": 0,
-                               "flat_precond": 0}
+                               "flat_precond": 0, "ldlt": 0}
     assert rec["rss_peak_ldl_gb"] > 0 and rec["elapsed_s"] > 0
 
 

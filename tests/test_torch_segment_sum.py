@@ -342,7 +342,7 @@ def test_graph_replays_count_their_launches(monkeypatch):
         per = {k: v - before[k] for k, v in kernels.captured_counts().items()}
         assert per == dict(spmm_sym=0, spmm_symmetric=0, spmm_paired=0,
                            segment_sum=3, btd_solve=0, flat_rhess=0,
-                           flat_precond=0)
+                           flat_precond=0, ldlt=0)
         spmm.reset_launches()
         kernels.count_launch(fn)  # an eager launch
         for _ in range(3):
