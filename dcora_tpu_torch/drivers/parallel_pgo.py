@@ -10,6 +10,11 @@ and the separator exchange is an all_gather.  ``--backend auto`` runs the
 tiled path with float32 tiles on cuda (every tile product of every agent in
 one launch of the strip kernel) and the edge path at float64 on the CPU.
 
+``run`` is ``prepare`` (the partition, the agents' graphs, the start, the
+batched problem, the ParallelRound and the central check) then
+``rbcd.run_rounds`` and the result; a caller that times the rounds alone
+(the benchmark) calls the two itself.
+
 Usage: python -m dcora_tpu_torch.drivers.parallel_pgo NUM_AGENTS file.g2o
        [--device cuda|cpu] [--backend auto|edge|tiled]
        [--config FILE] [--set KEY=VALUE ...]
@@ -22,6 +27,7 @@ from __future__ import annotations
 import argparse
 import logging
 import time
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,30 +59,45 @@ ROUND_CFG = RTRConfig(gradnorm_tol=1e-2, max_inner=50,
                       single_accepted_step=True)
 
 
-def run(num_agents: int, g2o_path: str, r: int = 5, max_rounds: int = 1000,
-        rgrad_norm_tol: float = 0.1, check_every: int = 10,
-        verbose: bool = False, backend: str = "auto", tile_dtype=None,
-        device="cuda", group=None) -> ParallelResult:
-    t0 = time.time()
+class ParallelSetup(NamedTuple):
+    """What prepare() returns: the round, this rank's packed start, the
+    central check and the map from a stack to the global state."""
+
+    rnd: ParallelRound
+    Xb: RAState               # this rank's agents' [A/W, ...] start
+    # Xs -> (2 f, gradnorm) over every pose, at float64 (one process only)
+    evaluate: Callable[[RAState], Tuple[float, float]]
+    # every agent's stack -> the global state, agent after agent
+    global_state: Callable[[RAState], RAState]
+
+
+def prepare(num_agents: int, measurements, n: int, d: int, r: int = 5,
+            backend: str = "auto", tile_dtype=None, device="cuda",
+            group=None, start: Optional[RAState] = None) -> ParallelSetup:
+    """The set-up of a parallel run over the n poses' pose-pose
+    `measurements`: the contiguous partition into num_agents
+    (multi_robot_pgo.robot_slice), each agent's LocalGraph, the start
+    packed per agent, the batched problem, the ParallelRound with the
+    block update ROUND_CFG, and, with one process, the central problem of
+    the check.  `start` is a global lifted state at rank r (every pose,
+    float64); None takes the driver's own chordal init."""
     dev = resolve_device(device)
     backend, tile_dtype = resolve_backend(backend, tile_dtype, dev)
-    ds = read_g2o_file(g2o_path)
-    ms = ds.pose_pose_measurements
-    d, n = ds.dim, ds.num_poses
-
-    odo, priv, shared, _ = partition_measurements(ms, n, num_agents)
+    odo, priv, shared, _ = partition_measurements(measurements, n,
+                                                  num_agents)
     graphs = []
     for a in range(num_agents):
         g = LocalGraph(a, r, d)
         g.set_measurements(odo[a] + priv[a] + shared[a])
         graphs.append(g)
-    T = chordal_initialization(ms, device=dev)
-    X = lifted.pad_rank(lifted.from_pose_array(T, device=dev), r)
+    if start is None:
+        T = chordal_initialization(measurements, device=dev)
+        start = lifted.pad_rank(lifted.from_pose_array(T, device=dev), r)
     states = []
     for a in range(num_agents):
         s, e = robot_slice(n, num_agents, a)
-        states.append(RAState(rot=X.rot[s:e], sph=X.sph[:0],
-                              trn=X.trn[s:e]))
+        states.append(RAState(rot=start.rot[s:e], sph=start.sph[:0],
+                              trn=start.trn[s:e]))
 
     pp = build_parallel_problem(graphs)
     rnd = ParallelRound(pp, ROUND_CFG, backend=backend,
@@ -96,7 +117,7 @@ def run(num_agents: int, g2o_path: str, r: int = 5, max_rounds: int = 1000,
     P = G0 = None
     if rnd.world == 1:
         central = LocalGraph(0, r, d)
-        central.set_measurements(ms)
+        central.set_measurements(measurements)
         P = central.problem_data(device=dev)
         G0 = lifted.zeros(central.dims, r, device=dev)
 
@@ -105,13 +126,30 @@ def run(num_agents: int, g2o_path: str, r: int = 5, max_rounds: int = 1000,
         return (2.0 * float(prob.cost(P, Xg)),
                 float(riemannian_gradient(P, Xg, G0).norm()))
 
+    return ParallelSetup(rnd, Xb, evaluate, global_state)
+
+
+def run(num_agents: int, g2o_path: str, r: int = 5, max_rounds: int = 1000,
+        rgrad_norm_tol: float = 0.1, check_every: int = 10,
+        verbose: bool = False, backend: str = "auto", tile_dtype=None,
+        device="cuda", group=None) -> ParallelResult:
+    """The driver: read the g2o file, prepare() from the chordal init,
+    run_rounds until the central gradnorm falls below rgrad_norm_tol or
+    max_rounds, then the global state and its 2 f."""
+    t0 = time.time()
+    ds = read_g2o_file(g2o_path)
+    n = ds.num_poses
+    setup = prepare(num_agents, ds.pose_pose_measurements, n, ds.dim, r,
+                    backend, tile_dtype, device, group)
+    rnd = setup.rnd
     Xb, rounds, trace, gradnorm, rounds_s = run_rounds(
-        rnd, Xb, max_rounds, check_every, rgrad_norm_tol, evaluate, verbose)
+        rnd, setup.Xb, max_rounds, check_every, rgrad_norm_tol,
+        setup.evaluate, verbose)
     X_stack = rnd.gather_states(Xb)
     Xg, cost = None, float("nan")
     if rnd.world == 1:
-        Xg = global_state(X_stack)
-        cost = 2.0 * float(prob.cost(P, Xg))
+        Xg = setup.global_state(X_stack)
+        cost = setup.evaluate(X_stack)[0]
     elapsed = time.time() - t0
     print(f"parallel-RBCD: agents={num_agents} rounds={rounds} "
           f"cost={cost:.6f} gradnorm={gradnorm:.4f} elapsed={elapsed:.1f}s "
@@ -119,7 +157,7 @@ def run(num_agents: int, g2o_path: str, r: int = 5, max_rounds: int = 1000,
     return ParallelResult(X=Xg, X_stack=X_stack, cost=cost,
                           gradnorm=gradnorm, rounds=rounds, trace=trace,
                           rounds_s=rounds_s, elapsed_s=elapsed,
-                          columns=pp.scalar_columns())
+                          columns=rnd.pp.scalar_columns())
 
 
 def main(argv=None):

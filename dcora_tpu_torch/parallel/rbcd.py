@@ -59,6 +59,7 @@ from dcora_tpu_torch.core.rtr import (
 )
 from dcora_tpu_torch.core.spmm import BLOCK, StripCSR
 from dcora_tpu_torch.types import ProblemDims, StateType
+from dcora_tpu_torch.utils.timing import count, span
 
 # trans-source kinds in fix_trans_src[..., 2]
 _KIND_POSE = 0
@@ -669,28 +670,37 @@ class ParallelRound:
     # -- the round ---------------------------------------------------------
 
     def __call__(self, X: RAState) -> Tuple[RAState, torch.Tensor]:
+        """One round: the span "rbcd.exchange" (publish, exchange, fixed
+        states, G), then "rbcd.update" (the stacked RTR step with its
+        layout conversions); counters "rbcd.rounds" and
+        "rbcd.agent_updates" (this rank's agents)."""
         r = X.rot.shape[2]
-        fixed = self.fixed_states(self.exchange(self.publish(X)), r)
-        G = self.linear_term(X, fixed)
-        if self.backend == "edge":
-            if X.rot.is_cuda and self.graph is None:
-                # the tCG iterations replay a CUDA graph, captured once
-                self.graph = TCGGraph(FLEET_EDGE, self.P_loc, self.M,
-                                      self.cfg.max_inner)
-            res = rtr_stacked(self.P_loc, G, self.M, X, self.cfg,
-                              FLEET_EDGE, graph=self.graph)
-            return res.X, res.gradnorm_final
-        dt = self.TP.dtype
-        r_pad = max(8, -(-r // 8) * 8)
-        Xf = stack_to_flat(self.TP, X, r_pad).to(dt)
-        Gf = stack_to_flat(self.TP, G, r_pad).to(dt)
-        # on the card the tCG replays a CUDA graph kept on the stack's
-        # TiledProblem, one per r_pad
-        res = rtr_stacked(self.TP, Gf, None, Xf, self.cfg, STACKED_FLAT,
-                          graph=tcg_graph(STACKED_FLAT, self.TP, Xf,
-                                          self.cfg.max_inner))
-        return (stack_from_flat(self.TP, res.X.to(X.rot.dtype), r),
-                res.gradnorm_final.to(X.rot.dtype))
+        lo, hi = self.agents
+        count("rbcd.rounds")
+        count("rbcd.agent_updates", hi - lo)
+        with span("rbcd.exchange"):
+            fixed = self.fixed_states(self.exchange(self.publish(X)), r)
+            G = self.linear_term(X, fixed)
+        with span("rbcd.update"):
+            if self.backend == "edge":
+                if X.rot.is_cuda and self.graph is None:
+                    # the tCG iterations replay a CUDA graph, captured once
+                    self.graph = TCGGraph(FLEET_EDGE, self.P_loc, self.M,
+                                          self.cfg.max_inner)
+                res = rtr_stacked(self.P_loc, G, self.M, X, self.cfg,
+                                  FLEET_EDGE, graph=self.graph)
+                return res.X, res.gradnorm_final
+            dt = self.TP.dtype
+            r_pad = max(8, -(-r // 8) * 8)
+            Xf = stack_to_flat(self.TP, X, r_pad).to(dt)
+            Gf = stack_to_flat(self.TP, G, r_pad).to(dt)
+            # on the card the tCG replays a CUDA graph kept on the stack's
+            # TiledProblem, one per r_pad
+            res = rtr_stacked(self.TP, Gf, None, Xf, self.cfg, STACKED_FLAT,
+                              graph=tcg_graph(STACKED_FLAT, self.TP, Xf,
+                                              self.cfg.max_inner))
+            return (stack_from_flat(self.TP, res.X.to(X.rot.dtype), r),
+                    res.gradnorm_final.to(X.rot.dtype))
 
 
 def round_per_agent(pp: ParallelRBCDProblem, cfg: RTRConfig, X: RAState,
@@ -792,23 +802,27 @@ def run_rounds(rnd: ParallelRound, Xb: RAState, max_rounds: int,
     evaluation -- evaluate(Xb) -> (2 f, gradnorm) with one process, the
     reduced block gradnorms and a nan cost across ranks -- until the
     gradnorm falls below tol.  Returns (Xb, rounds, trace, gradnorm,
-    rounds_s)."""
-    import time
+    rounds_s).
 
+    Spans: "rbcd.round", a round to the host's wait for it (one
+    synchronize a round on the card), the round's "rbcd.exchange" and
+    "rbcd.update" inside it; "rbcd.evaluate", the check to its
+    read-back."""
     gradnorm, rounds, trace, rounds_s = float("inf"), 0, [], 0.0
     sync = Xb.rot.is_cuda
     for it in range(max_rounds):
-        t0 = time.perf_counter()
-        Xb, gnorms = rnd(Xb)
-        if sync:
-            torch.cuda.synchronize(Xb.rot.device)
-        rounds_s += time.perf_counter() - t0
+        with span("rbcd.round") as sp:
+            Xb, gnorms = rnd(Xb)
+            if sync:
+                torch.cuda.synchronize(Xb.rot.device)
+        rounds_s += sp.seconds
         rounds += 1
         if it % check_every == 0 or it == max_rounds - 1:
-            if rnd.world > 1:
-                cost, gradnorm = float("nan"), rnd.reduce_sq(gnorms)
-            else:
-                cost, gradnorm = evaluate(Xb)
+            with span("rbcd.evaluate"):
+                if rnd.world > 1:
+                    cost, gradnorm = float("nan"), rnd.reduce_sq(gnorms)
+                else:
+                    cost, gradnorm = evaluate(Xb)
             trace.append((it, cost, gradnorm))
             if verbose:
                 print(f"round = {it} | cost = {cost:.6f} | "
