@@ -20,18 +20,21 @@ unchanged from the JAX package.  Also the saddle-escape line search
 
 Lanczos restarts after a breakdown draw from an injected torch.Generator
 (the JAX package draws from jax.random, whose stream torch cannot
-reproduce); the start vectors are numpy-made and carry over exactly.
+reproduce); the start vectors are numpy-made and carry over exactly.  On
+the card each Lanczos step is one replay of a captured CUDA graph
+(LanczosGraph), with the eager loop's bits; on the CPU the loop is eager.
 """
 
 from __future__ import annotations
 
 import logging
+from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from dcora_tpu_torch.core import ldlt, lifted, problem as prob, tiled
+from dcora_tpu_torch.core import kernels, ldlt, lifted, problem as prob, tiled
 from dcora_tpu_torch.core.lifted import RAState
 from dcora_tpu_torch.core.manifold import (
     oblique_project,
@@ -120,6 +123,87 @@ def _lanczos(mv, v0: torch.Tensor, m: int, breakdown: float,
     return alphas, betas, basis
 
 
+class LanczosGraph:
+    """One step of _lanczos captured once as a CUDA graph, replayed m times
+    a sweep, for every shift of one operator: sweep(v0, shift) is
+    _lanczos(make_mv(shift), v0, m, breakdown, generator).
+
+    Issued from Python a step is ~30 small kernels (the matvec, the index
+    writes, the two-pass reorthogonalization of w and of the fresh
+    direction, the norms), whose host issue time exceeds their device
+    time; the step holds no host decision, so it is recorded once.  The
+    graph reads static buffers: v, the basis [m, k], alphas and betas [m],
+    the step index j (0-d, on the device) and the shift (0-d), which
+    make_mv(shift)'s matvec reads.  Its arithmetic is _lanczos's, and the
+    restarts draw from `generator` (registered with the graph) in the same
+    order, so a sweep gives the eager loop's bits.  The launches of the
+    port's kernels it records count once per replay."""
+
+    def __init__(self, make_mv, v0: torch.Tensor, m: int, breakdown: float,
+                 generator: torch.Generator):
+        kw = dict(dtype=v0.dtype, device=v0.device)
+        self.m, self.breakdown, self.generator = m, breakdown, generator
+        self.shift = torch.zeros((), **kw)
+        self.mv = make_mv(self.shift)
+        self.v = torch.zeros(v0.shape[0], **kw)
+        self.basis = torch.zeros((m, v0.shape[0]), **kw)
+        self.alphas = torch.zeros(m, **kw)
+        self.betas = torch.zeros(m, **kw)
+        self.j = torch.zeros((), dtype=torch.int64, device=v0.device)
+        self.graph, self.per_replay = None, {}
+
+    def _step(self):
+        v, basis, at = self.v, self.basis, self.j.view(1)
+        basis.index_copy_(0, at, v[None])
+        w = self.mv(v)
+        self.alphas.index_copy_(0, at, torch.dot(v, w)[None])
+        for _ in range(2):
+            w = w - basis.T @ (basis @ w)
+        b = torch.linalg.vector_norm(w)
+        self.betas.index_copy_(0, at, b[None])
+        fresh = torch.randn(v.shape[0], generator=self.generator,
+                            dtype=v.dtype, device=v.device)
+        for _ in range(2):
+            fresh = fresh - basis.T @ (basis @ fresh)
+        fresh = fresh / torch.clamp(torch.linalg.vector_norm(fresh),
+                                    min=1e-300 if v.dtype == torch.float64
+                                    else 1e-30)
+        v.copy_(torch.where(b > self.breakdown,
+                            w / torch.where(b == 0, torch.ones_like(b), b),
+                            fresh))
+        self.j.add_(1)
+
+    def __call__(self, v0: torch.Tensor, shift):
+        """(alphas, betas, basis): the graph's own buffers, which the next
+        sweep overwrites."""
+        count("lanczos.steps", self.m)
+        count("lanczos.graph_steps", self.m)
+        if self.graph is None:
+            count("lanczos.graph_captures")
+            self.graph, self.per_replay = kernels.record(
+                self._step, self.v.device, self.generator)
+        self.shift.fill_(shift)
+        self.v.copy_(v0 / torch.linalg.vector_norm(v0))
+        self.basis.zero_()
+        self.j.zero_()
+        for _ in range(self.m):
+            self.graph.replay()
+            kernels.add_replays(self.per_replay)
+        return self.alphas, self.betas, self.basis
+
+
+def _sweeps(make_mv, v0: torch.Tensor, m: int, breakdown: float,
+            generator: torch.Generator):
+    """sweep(v, shift) -> _lanczos(make_mv(shift), v, m, breakdown,
+    generator) for one operator: on the card by replaying one LanczosGraph,
+    captured at the first sweep and shared by every shift; elsewhere
+    eagerly."""
+    if v0.is_cuda:
+        return LanczosGraph(make_mv, v0, m, breakdown, generator)
+    return lambda v, shift: _lanczos(make_mv(shift), v, m, breakdown,
+                                     generator)
+
+
 def _ritz_extreme(alphas, betas, basis):
     """Largest-magnitude Ritz pair and its residual bound."""
     Tm = torch.diag(alphas) + torch.diag(betas[:-1], 1) + \
@@ -145,8 +229,8 @@ def minimum_eigen_pair(P: ProblemData, C: Certificate, dims: ProblemDims,
         v0 = np.random.default_rng(0).standard_normal(dims.k)
     v0 = torch.as_tensor(v0, **f64)
 
-    mv0 = _flat_matvec(P, C, dims, 0.0)
-    lam_lm, y_lm, res_lm = _ritz_extreme(*_lanczos(mv0, v0, m, 1e-12, gen))
+    sweep = _sweeps(partial(_flat_matvec, P, C, dims), v0, m, 1e-12, gen)
+    lam_lm, y_lm, res_lm = _ritz_extreme(*sweep(v0, 0.0))
     lam_lm_f = float(lam_lm)
     if lam_lm_f < 0:
         return lam_lm_f, y_lm, float(res_lm)
@@ -155,7 +239,7 @@ def minimum_eigen_pair(P: ProblemData, C: Certificate, dims: ProblemDims,
     # perturbed S e0 row (reference: DCORA_utils.cpp:1861-1866)
     e0 = torch.zeros(dims.k, **f64)
     e0[0] = 1.0
-    row0 = mv0(e0)
+    row0 = _flat_matvec(P, C, dims, 0.0)(e0)
     rng = np.random.default_rng(1)
     pert = rng.standard_normal(dims.k)
     pert /= np.linalg.norm(pert)
@@ -167,11 +251,10 @@ def minimum_eigen_pair(P: ProblemData, C: Certificate, dims: ProblemDims,
     # restarted sweeps seeded with the current Ritz vector; stop after two
     # consecutive stagnant sweeps (a single sweep can miss a clustered
     # bottom eigenvalue)
-    mvs = _flat_matvec(P, C, dims, -2.0 * lam_lm)
     lam_best, y_best, res_best = None, None, 0.0
     stagnant = 0
     for _ in range(40):
-        lam_s, y_s, res_s = _ritz_extreme(*_lanczos(mvs, v0s, m, 1e-12, gen))
+        lam_s, y_s, res_s = _ritz_extreme(*sweep(v0s, -2.0 * lam_lm))
         lam_cur = float(lam_s + 2.0 * lam_lm)
         if lam_best is not None and \
                 lam_cur > lam_best - max(1e-12, 1e-9 * abs(lam_lm_f)):
@@ -193,21 +276,15 @@ def minimum_eigen_pair(P: ProblemData, C: Certificate, dims: ProblemDims,
 # --------------------------------------------------------------------------
 
 
-def _lanczos_extreme_flat(TP, aux, shift, v0: torch.Tensor, m: int,
-                          generator: torch.Generator):
-    kpad = v0.shape[0]
-    r_pad = 8  # rows 1.. stay zero
-
+def _tiled_matvec(TP, aux, shift):
     def mv(v):
-        V = torch.zeros((r_pad, kpad), dtype=v.dtype, device=v.device)
-        V[0] = v
+        V = torch.zeros((8, v.shape[0]), dtype=v.dtype, device=v.device)
+        V[0] = v  # rows 1.. stay zero
         W = tiled.flat_rhess(TP.meta, None, tiled.apply_tiled(TP, V), V,
                              aux, project=False)
         return W[0] + shift * v
 
-    alphas, betas, basis = _lanczos(mv, v0, m, 1e-7, generator)
-    lam, y, _ = _ritz_extreme(alphas, betas, basis)
-    return lam, y
+    return mv
 
 
 def minimum_eigen_pair_tiled(TP, X: RAState, num_lanczos: int = 64,
@@ -231,16 +308,21 @@ def minimum_eigen_pair_tiled(TP, X: RAState, num_lanczos: int = 64,
         Y = tiled.from_flat(TP, y[None].to(torch.float64))
         return lifted.to_flat(Y)[0]
 
+    sweep = _sweeps(partial(_tiled_matvec, TP, aux), v0, m, 1e-7, gen)
+
+    def extreme(v, shift):
+        lam, y, _ = _ritz_extreme(*sweep(v, shift))
+        return lam, y
+
     zero = torch.zeros((), dtype=dt, device=TP.device)
-    lam_lm, y_lm = _lanczos_extreme_flat(TP, aux, zero, v0, m, gen)
+    lam_lm, y_lm = extreme(v0, zero)
     lam_lm_f = float(lam_lm)
     if lam_lm_f < 0:
         return lam_lm_f, ra(y_lm)
     lam_best, y_best = None, None
     stagnant = 0
     for _ in range(20):
-        lam_s, y_s = _lanczos_extreme_flat(TP, aux, -2.0 * lam_lm, v0, m,
-                                           gen)
+        lam_s, y_s = extreme(v0, -2.0 * lam_lm)
         lam_cur = float(lam_s + 2.0 * lam_lm_f)
         if lam_best is not None and \
                 lam_cur > lam_best - 1e-6 * abs(lam_lm_f):

@@ -248,3 +248,36 @@ def add_replays(per_replay: Dict[str, int]):
     for name, n in per_replay.items():
         if n:
             _WRAPPERS[name].launches += n
+
+
+_WARMUP_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def record(body, device, generator=None):
+    """(graph, per_replay): body() recorded once as a CUDA graph on
+    `device`, and the launches of each kernel it records (for add_replays).
+    body runs once on a side stream first, as torch.cuda.graphs requires;
+    what it writes there is the caller's to overwrite.  Every capture on a
+    device warms up on the same side stream: cuBLAS keeps a workspace for
+    each stream it has run on (32 MiB on the H100) as long as the process
+    lives.  A `generator` that body draws from is registered with the
+    graph, so that each replay draws from the generator's state at the
+    replay and moves it on, as an eager call would; the warm-up's draws
+    are given back first."""
+    saved = None if generator is None else generator.get_state()
+    device = torch.device(device)
+    side = _WARMUP_STREAMS.get(device)
+    if side is None:
+        side = _WARMUP_STREAMS[device] = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        generator.set_state(saved)
+        graph.register_generator_state(generator)
+    before = captured_counts()
+    with torch.cuda.graph(graph):
+        body()
+    return graph, {k: v - before[k] for k, v in captured_counts().items()}

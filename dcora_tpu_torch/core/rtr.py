@@ -380,20 +380,9 @@ class TCGGraph:
         self._record(body)
 
     def _record(self, body):
-        dev = self.state[0].device
-        # warm up on a side stream before capture, as torch.cuda.graphs
-        # requires; `load` overwrites what the warm-up wrote
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        before = kernels.captured_counts()
-        with torch.cuda.graph(self.graph):
-            body()
-        self.per_replay = {k: v - before[k]
-                           for k, v in kernels.captured_counts().items()}
+        # `load` overwrites what the warm-up wrote
+        self.graph, self.per_replay = kernels.record(body,
+                                                     self.state[0].device)
 
     def load(self, X, aux, radius, stop_tol, state: _TCGState):
         inputs = (X, *aux, radius, stop_tol)

@@ -21,6 +21,7 @@ import dcora_tpu_torch.core.tiled as ttiled
 from dcora_tpu.core.graph import LocalGraph
 from dcora_tpu.core.init import chordal_initialization
 from dcora_tpu_torch import convert
+from dcora_tpu_torch.utils import timing
 from torch_port_common import assert_close, assert_state_close, np_of
 
 
@@ -109,6 +110,30 @@ def test_fast_verification_verdict(critical, which):
     assert okj == (which == "critical")
     if not okj:
         assert tht < -1e-3 and thj < -1e-3
+
+
+def test_cpu_lanczos_runs_eager(critical):
+    """On the CPU every Lanczos sweep is the eager loop: no graph is
+    captured and no step counted as a graph replay, and fast_verification
+    gives the JAX package's verdicts (the critical point certified, the
+    rank-3 start not)."""
+    g = critical["g"]
+    TPt = ttiled.build_tiled(critical["Pt"], g.dims, dtype=torch.float32)
+    TPj = jtiled.build_tiled(critical["Pj"], g.dims, dtype=np.float32,
+                             with_pallas=False)
+    timing.reset_counters()
+    for key in ("X", "X3"):
+        okt, _, _ = tcert.fast_verification(critical["Pt"],
+                                            critical[key + "t"], 1e-3, 64,
+                                            TP=TPt)
+        okj, _, _ = jcert.fast_verification(critical["Pj"],
+                                            critical[key + "j"], 1e-3, 64,
+                                            TP=TPj)
+        assert okt == okj == (key == "X")
+    c = timing.counters()
+    assert c["certify.calls"] == 2 and c["lanczos.steps"] > 0
+    assert c.get("lanczos.graph_steps", 0) == 0
+    assert c.get("lanczos.graph_captures", 0) == 0
 
 
 def test_escape_saddle_matches(critical):

@@ -128,6 +128,27 @@ def test_counters_add_host_and_device_counts():
     assert timing.counters() == {}
 
 
+@pytest.mark.parametrize("counts, mix, want", [
+    ({"lanczos.steps": 256, "lanczos.graph_steps": 192}, "certify", 75.0),
+    ({"lanczos.steps": 256, "lanczos.graph_steps": 0}, "certify", 0.0),
+    ({"lanczos.steps": 256}, "certify", None),  # a port without graphs
+    ({"lanczos.steps": 256, "lanczos.graph_steps": 256}, "rtr", None)])
+def test_lanczos_graph_pct_reads_the_counters(monkeypatch, counts, mix,
+                                              want):
+    """The benchmark's lanczos_graph_pct: 100 graph steps / steps of the
+    port's counters in the certify entry, None where the port counts no
+    graph steps and outside the entry."""
+    from collections import Counter
+
+    from port_bench import harness, trace as tr
+
+    monkeypatch.setattr(timing, "counters", lambda: dict(counts))
+    reading = tr.Reading(tr.Reduced([], []), 1.0, Counter(), [], None,
+                         None, "float64", None, mix)
+    got = harness.load_metric("lanczos_graph_pct")(reading)
+    assert got == (None if want is None else pytest.approx(want))
+
+
 def test_certified_solve_parts_sum_to_at_most_their_stage(grids):
     """The driver's certified solve on the CPU: the certify stage's parts
     are there and sum to no more than the stage; init_s is the graph and
