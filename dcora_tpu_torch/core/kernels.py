@@ -21,6 +21,7 @@ captured runs once per replay of that graph, so it is counted per replay
 from __future__ import annotations
 
 import ctypes
+import gc
 import hashlib
 import os
 import shutil
@@ -263,7 +264,10 @@ def record(body, device, generator=None):
     lives.  A `generator` that body draws from is registered with the
     graph, so that each replay draws from the generator's state at the
     replay and moves it on, as an eager call would; the warm-up's draws
-    are given back first."""
+    are given back first.  The cyclic garbage collector is off during the
+    capture: a graph it frees there (one held in a dead reference cycle,
+    such as a dropped TiledProblem and the TCGGraphs kept on it)
+    invalidates the capture."""
     saved = None if generator is None else generator.get_state()
     device = torch.device(device)
     side = _WARMUP_STREAMS.get(device)
@@ -278,6 +282,12 @@ def record(body, device, generator=None):
         generator.set_state(saved)
         graph.register_generator_state(generator)
     before = captured_counts()
-    with torch.cuda.graph(graph):
-        body()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            body()
+    finally:
+        if collecting:
+            gc.enable()
     return graph, {k: v - before[k] for k, v in captured_counts().items()}

@@ -494,6 +494,49 @@ class RTRResult(NamedTuple):
     radius_final: Optional[torch.Tensor] = None
 
 
+def _cost(X, W, G, ax=None):
+    """f(X) from W = X Q (one per agent along a stack's axis ax)."""
+    fX = 0.5 * tvdot(W, X, ax)
+    return fX if G is None else fX + tvdot(X, G, ax)
+
+
+def _egrad(W, G):
+    return W if G is None else tadd(W, G)
+
+
+def _gradnorm(be, P, X, W, G, ax=None):
+    return tnorm(be.tangent(P, X, _egrad(W, G)), ax)
+
+
+def _trial(be, P, M, G, cfg: RTRConfig, X, W, radius, graph, ax=None,
+           active=None):
+    """One trust-region trial: (X, W, rho, accept, eta), eta the tCG step
+    inside `radius`, rho the regularized ratio of actual to model decrease,
+    X and W those of the retracted step where accepted (on a stack: only
+    where `active`, the agents whose tCG is wanted)."""
+    done0 = None if active is None else ~active
+    fX = _cost(X, W, G, ax)
+    egrad = _egrad(W, G)
+    grad = be.tangent(P, X, egrad)
+    res = truncated_cg(P, X, grad, egrad, M, radius, cfg.max_inner,
+                       cfg.kappa, cfg.theta, be=be, graph=graph, done0=done0)
+    Xtest = be.retract(P, X, res.eta)
+    Wtest = be.applyQ(P, Xtest)
+    ftest = _cost(Xtest, Wtest, G, ax)
+    model_decrease = -(tvdot(grad, res.eta, ax)
+                       + 0.5 * tvdot(res.eta, res.Heta, ax))
+    reg = cfg.rho_regularization * torch.finfo(fX.dtype).eps * \
+        torch.clamp(fX.abs(), min=1.0)
+    den = model_decrease + reg
+    rho = (fX - ftest + reg) / torch.where(
+        den.abs() < 1e-300, torch.full_like(den, 1e-300), den)
+    accept = (rho > cfg.rho_accept) & (ftest <= fX + reg)
+    if active is not None:
+        accept = active & accept
+    return (twhere(accept, Xtest, X, ax), twhere(accept, Wtest, W, ax), rho,
+            accept, res.eta)
+
+
 def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         radius0=None, graph: Optional[TCGGraph] = None) -> RTRResult:
     """Riemannian trust region from X0 until gradnorm < cfg.gradnorm_tol or
@@ -509,17 +552,6 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
     radius = torch.as_tensor(cfg.initial_radius if radius0 is None
                              else radius0, dtype=lead.dtype,
                              device=lead.device)
-
-    def f_of(X, W):
-        fX = 0.5 * tvdot(W, X)
-        if G is not None:
-            fX = fX + tvdot(X, G)
-        return fX
-
-    def egrad_of(W):
-        return W if G is None else tadd(W, G)
-
-    eps = torch.finfo(lead.dtype).eps
     # the tCG iterations of the edge path and the flat backend replay a
     # CUDA graph on the card
     if not (lead.is_cuda and be in (RA_BACKEND, FLAT_BACKEND)):
@@ -528,29 +560,8 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         graph = TCGGraph(be, P, M, cfg.max_inner) if be is RA_BACKEND \
             else tcg_graph(be, P, lead, cfg.max_inner)
 
-    def try_step(X, W, radius):
-        """One trust-region step proposal."""
-        fX = f_of(X, W)
-        egrad = egrad_of(W)
-        grad = be.tangent(P, X, egrad)
-        res = truncated_cg(P, X, grad, egrad, M, radius, cfg.max_inner,
-                           cfg.kappa, cfg.theta, be=be, graph=graph)
-        Xtest = be.retract(P, X, res.eta)
-        Wtest = be.applyQ(P, Xtest)
-        ftest = f_of(Xtest, Wtest)
-        model_decrease = -(tvdot(grad, res.eta)
-                           + 0.5 * tvdot(res.eta, res.Heta))
-        reg = cfg.rho_regularization * eps * torch.clamp(fX.abs(), min=1.0)
-        den = model_decrease + reg
-        rho = (fX - ftest + reg) / torch.where(
-            den.abs() < 1e-300, torch.full_like(den, 1e-300), den)
-        accept = (rho > cfg.rho_accept) & (ftest <= fX + reg)
-        hit_boundary = tnorm(res.eta) >= 0.99 * radius
-        return (twhere(accept, Xtest, X), twhere(accept, Wtest, W), rho,
-                accept, hit_boundary)
-
     X, W = X0, be.applyQ(P, X0)
-    gnorm = tnorm(be.tangent(P, X, egrad_of(W)))
+    gnorm = _gradnorm(be, P, X, W, G)
     it = 0
     done = bool(gnorm < cfg.gradnorm_tol)
     any_acc = done
@@ -559,33 +570,34 @@ def rtr(P, G, M, X0, cfg: RTRConfig, be=RA_BACKEND,
         # after every try until one step is accepted, at most
         # max_rejections + 1 tries; skipped when already below tolerance
         # (QuadraticOptimizer.cpp:54-56)
-        accepted = done
-        while it <= cfg.max_rejections and not accepted:
+        while it <= cfg.max_rejections and not any_acc:
             with span("rtr.outer"):
-                X, W, _, accept, _ = try_step(X, W, radius)
+                X, W, _, accept, _ = _trial(be, P, M, G, cfg, X, W, radius,
+                                            graph)
                 radius = radius / 4.0
-                accepted = bool(accept)
+                any_acc = bool(accept)
             it += 1
             count("rtr.outer")
-        return RTRResult(X=X, f_final=f_of(X, W),
-                         gradnorm_final=tnorm(be.tangent(P, X, egrad_of(W))),
-                         outer_iters=it, accepted=accepted or done,
-                         radius_final=radius)
-    while it < cfg.max_outer and not done:
-        with span("rtr.outer"):
-            X, W, rho, accept, hit_boundary = try_step(X, W, radius)
-            radius = torch.where(
-                rho < 0.25, radius / 4.0,
-                torch.where(hit_boundary & (rho > 0.75),
-                            torch.clamp(2.0 * radius, max=max_radius),
-                            radius))
-            gnorm = tnorm(be.tangent(P, X, egrad_of(W)))
-            flags = torch.stack([gnorm < cfg.gradnorm_tol, accept]).tolist()
-        it += 1
-        count("rtr.outer")
-        done = flags[0]
-        any_acc = any_acc or flags[1]
-    return RTRResult(X=X, f_final=f_of(X, W), gradnorm_final=gnorm,
+        gnorm = _gradnorm(be, P, X, W, G)
+    else:
+        while it < cfg.max_outer and not done:
+            with span("rtr.outer"):
+                X, W, rho, accept, eta = _trial(be, P, M, G, cfg, X, W,
+                                                radius, graph)
+                hit_boundary = tnorm(eta) >= 0.99 * radius
+                radius = torch.where(
+                    rho < 0.25, radius / 4.0,
+                    torch.where(hit_boundary & (rho > 0.75),
+                                torch.clamp(2.0 * radius, max=max_radius),
+                                radius))
+                gnorm = _gradnorm(be, P, X, W, G)
+                flags = torch.stack([gnorm < cfg.gradnorm_tol,
+                                     accept]).tolist()
+            it += 1
+            count("rtr.outer")
+            done = flags[0]
+            any_acc = any_acc or flags[1]
+    return RTRResult(X=X, f_final=_cost(X, W, G), gradnorm_final=gnorm,
                      outer_iters=it, accepted=any_acc,
                      radius_final=radius)
 
@@ -608,49 +620,22 @@ def rtr_stacked(P, G, M, X0, cfg: RTRConfig, be,
     A = lead.shape[ax]
     radius = torch.full((A,), cfg.initial_radius, dtype=lead.dtype,
                         device=lead.device)
-    eps = torch.finfo(lead.dtype).eps
-
-    def f_of(X, W):
-        fX = 0.5 * tvdot(W, X, ax)
-        if G is not None:
-            fX = fX + tvdot(X, G, ax)
-        return fX
-
-    def egrad_of(W):
-        return W if G is None else tadd(W, G)
-
     X, W = X0, be.applyQ(P, X0)
-    below = tnorm(be.tangent(P, X, egrad_of(W)), ax) < cfg.gradnorm_tol
+    below = _gradnorm(be, P, X, W, G, ax) < cfg.gradnorm_tol
     active = ~below
     tries = torch.zeros(A, dtype=torch.int32, device=lead.device)
     accepted = below
     for _ in range(cfg.max_rejections + 1):
         if not bool(active.any()):
             break
-        fX = f_of(X, W)
-        egrad = egrad_of(W)
-        grad = be.tangent(P, X, egrad)
-        res = truncated_cg(P, X, grad, egrad, M, radius, cfg.max_inner,
-                           cfg.kappa, cfg.theta, be=be, graph=graph,
-                           done0=~active)
-        Xtest = be.retract(P, X, res.eta)
-        Wtest = be.applyQ(P, Xtest)
-        ftest = f_of(Xtest, Wtest)
-        model_decrease = -(tvdot(grad, res.eta, ax)
-                           + 0.5 * tvdot(res.eta, res.Heta, ax))
-        reg = cfg.rho_regularization * eps * torch.clamp(fX.abs(), min=1.0)
-        den = model_decrease + reg
-        rho = (fX - ftest + reg) / torch.where(
-            den.abs() < 1e-300, torch.full_like(den, 1e-300), den)
-        take = active & (rho > cfg.rho_accept) & (ftest <= fX + reg)
-        X = twhere(take, Xtest, X, ax)
-        W = twhere(take, Wtest, W, ax)
+        X, W, _, take, _ = _trial(be, P, M, G, cfg, X, W, radius, graph,
+                                  ax, active)
         radius = torch.where(active, radius / 4.0, radius)
         tries = tries + active.to(torch.int32)
         accepted = accepted | take
         active = active & ~take & (tries <= cfg.max_rejections)
-    return RTRResult(X=X, f_final=f_of(X, W),
-                     gradnorm_final=tnorm(be.tangent(P, X, egrad_of(W)), ax),
+    return RTRResult(X=X, f_final=_cost(X, W, G, ax),
+                     gradnorm_final=_gradnorm(be, P, X, W, G, ax),
                      outer_iters=tries, accepted=accepted,
                      radius_final=radius)
 

@@ -19,11 +19,13 @@ A deliberate difference: the fresh Lanczos vectors after a breakdown come
 from a ``torch.Generator`` where the JAX package draws from ``jax.random``;
 the start vector and the restart's perturbation keep numpy's
 ``default_rng(0)``, as in JAX.  The PSD verdict is confirmed by the host
-LDL^T check (``core.certify._min_eig_host``).
+LDL^T check.  Only the matvec, and issuing its Lanczos eagerly (no CUDA
+graph: it all-reduces), are this module's; the rest is core.certify's.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -32,9 +34,10 @@ import torch
 from dcora_tpu_torch.core import lifted, problem as prob
 from dcora_tpu_torch.core.certify import (
     Certificate,
-    _lanczos,
-    _min_eig_host,
-    _ritz_extreme,
+    _eager_sweeps,
+    _host_verdict,
+    _min_eig_pair,
+    _rayleigh_proof,
     dual_certificate_blocks,
 )
 from dcora_tpu_torch.core.lifted import RAState
@@ -105,13 +108,6 @@ def make_sharded_matvec(P_sh: ProblemData, C: Certificate, dims: ProblemDims,
     return mv
 
 
-def _sweep(mv, shift, v0, m: int, generator):
-    """Largest-magnitude Ritz pair of S + shift I after m Lanczos steps
-    (dcora_tpu/parallel/certify.py:127-162)."""
-    return _ritz_extreme(*_lanczos(lambda v: mv(v, shift), v0, m, 1e-12,
-                                   generator))
-
-
 def minimum_eigen_pair_sharded(
         P: ProblemData, C: Certificate, dims: ProblemDims,
         num_shards: int, num_lanczos: int = 64,
@@ -120,51 +116,16 @@ def minimum_eigen_pair_sharded(
 ) -> Tuple[float, torch.Tensor, float]:
     """(lambda_min, eigvec [k], residual) of S with the matvec sharded over
     `num_shards` edge shards (pass a prebuilt shard_problem_edges P_sh to
-    amortize the split), spectrum-shifted and restarted as the JAX
-    package's."""
+    amortize the split), as core.certify.minimum_eigen_pair with the
+    shifted start perturbed by the rng that drew v0."""
     if P_sh is None:
         P_sh = shard_problem_edges(P, num_shards)
     mv = make_sharded_matvec(P_sh, C, dims, group)
-    m = min(num_lanczos, dims.k)
-    dev = C.rot_blocks.device
-    f64 = dict(dtype=torch.float64, device=dev)
-    gen = generator or torch.Generator(device=dev).manual_seed(0)
-    zero = torch.zeros((), **f64)
-
     rng = np.random.default_rng(0)
-    v0 = torch.as_tensor(rng.standard_normal(dims.k), **f64)
-    lam_lm, y_lm, res_lm = _sweep(mv, zero, v0, m, gen)
-    lam_lm_f = float(lam_lm)
-    if lam_lm_f < 0:
-        return lam_lm_f, y_lm, float(res_lm)
-
-    e0 = torch.zeros(dims.k, **f64)
-    e0[0] = 1.0
-    row0 = mv(e0, zero)
-    pert = rng.standard_normal(dims.k)
-    pert /= np.linalg.norm(pert)
-    v0s = row0 + 0.03 * torch.linalg.vector_norm(row0) * \
-        torch.as_tensor(pert, **f64)
-    if float(torch.linalg.vector_norm(v0s)) < 1e-12:
-        v0s = torch.as_tensor(rng.standard_normal(dims.k), **f64)
-    # restarted sweeps (see core.certify.minimum_eigen_pair: a single sweep
-    # can miss a clustered bottom eigenvalue and falsely certify)
-    lam_best, y_best, res_best = None, None, 0.0
-    stagnant = 0
-    for _ in range(40):
-        lam_s, y_s, res_s = _sweep(mv, -2.0 * lam_lm, v0s, m, gen)
-        lam_cur = float(lam_s + 2.0 * lam_lm)
-        if lam_best is not None and \
-                lam_cur > lam_best - max(1e-12, 1e-9 * abs(lam_lm_f)):
-            stagnant += 1
-            if stagnant >= 2:
-                break
-        else:
-            stagnant = 0
-        if lam_best is None or lam_cur < lam_best:
-            lam_best, y_best, res_best = lam_cur, y_s, float(res_s)
-        v0s = y_s
-    return lam_best, y_best, res_best
+    v0 = torch.as_tensor(rng.standard_normal(dims.k), dtype=torch.float64,
+                         device=C.rot_blocks.device)
+    return _min_eig_pair(lambda shift: partial(mv, shift=shift), v0,
+                         num_lanczos, generator, rng, _eager_sweeps)
 
 
 def fast_verification_sharded(P: ProblemData, X: RAState, eta: float,
@@ -180,15 +141,7 @@ def fast_verification_sharded(P: ProblemData, X: RAState, eta: float,
     lam_min, v, _ = minimum_eigen_pair_sharded(
         P, C, dims, num_shards, num_lanczos, P_sh=P_sh, group=group,
         generator=generator)
-    if lam_min + eta < 0:
-        mv = make_sharded_matvec(P_sh, C, dims, group)
-        vj = v / torch.linalg.vector_norm(v)
-        theta = float(torch.dot(vj, mv(vj, torch.zeros_like(vj[0]))))
-        if theta + eta < 0:
-            return False, theta, vj
-    certified, lam_host, v_host = _min_eig_host(P, C, dims, eta)
-    if certified:
-        return True, 0.0, None
-    if v_host is not None:
-        v = torch.as_tensor(v_host, dtype=torch.float64, device=X.device)
-    return False, lam_host, v
+    proof = lam_min + eta < 0 and _rayleigh_proof(
+        partial(make_sharded_matvec(P_sh, C, dims, group), shift=0.0),
+        v / torch.linalg.vector_norm(v), eta)
+    return proof or _host_verdict(P, C, dims, eta, v)

@@ -184,6 +184,70 @@ def test_lanczos_breakdown_restart_uses_generator():
     assert not torch.equal(outs[0], outs[2])
 
 
+def _clustered_sweeps(m):
+    """sweep(v, shift) of m Lanczos steps on a 40 x 40 symmetric operator
+    whose three lowest eigenvalues lie within 2e-7 of -1 and whose largest
+    is 100, and the log of its calls: (start, shift, Ritz value, vector)."""
+    rng = np.random.default_rng(8)
+    Q = np.linalg.qr(rng.standard_normal((40, 40)))[0]
+    ev = np.concatenate([[-1.0, -1.0 + 1e-7, -1.0 + 2e-7],
+                         np.linspace(0.5, 100.0, 37)])
+    A = torch.as_tensor(Q @ np.diag(ev) @ Q.T)
+    gen = torch.Generator().manual_seed(0)
+    log = []
+
+    def sweep(v, shift):
+        out = tcert._lanczos(lambda u: A @ u + shift * u, v, m, 1e-12, gen)
+        lam, y, _ = tcert._ritz_extreme(*out)
+        log.append((v, shift, lam, y))
+        return out
+
+    return sweep, log, torch.as_tensor(rng.standard_normal(40))
+
+
+@pytest.mark.parametrize("rel_tol, cap, sweeps", [
+    (1e-9, 40, None),  # converging on the cluster
+    (1.0, 40, 3),      # every restart stagnant: stops after two of them
+    (1e-9, 2, 2),      # stopped by the cap
+])
+def test_spectrum_shift_restart_rule(rel_tol, cap, sweeps):
+    """The restart loop of every Lanczos search: after the unshifted sweep
+    (lam_lm > 0) the shifted sweeps run from start(), then each from
+    the last Ritz vector; the loop stops after two consecutive sweeps that
+    gain no more than the tolerance, or at its cap, and keeps the lowest
+    estimate and its vector among the sweeps before the one that stops it
+    (lam_lm is a 6-step estimate of 100)."""
+    sweep, log, v0 = _clustered_sweeps(6)
+    start = torch.ones(40, dtype=torch.float64)
+    lam, y, _ = tcert._spectrum_shift(sweep, v0, lambda: start, rel_tol,
+                                      1e-12, cap)
+    (v_first, shift0, lam_lm, _), restarts = log[0], log[1:]
+    assert v_first is v0 and shift0 == 0.0
+    assert 0 < float(lam_lm) <= 100.0
+    assert restarts[0][0] is start
+    for (_, _, _, y_prev), (v, shift, _, _) in zip(restarts, restarts[1:]):
+        assert torch.equal(v, y_prev)
+    assert all(float(shift) == float(-2.0 * lam_lm)
+               for _, shift, _, _ in restarts)
+    cur = [float(lam_s + 2.0 * lam_lm) for _, _, lam_s, _ in restarts]
+    tol = max(1e-12, rel_tol * abs(float(lam_lm)))
+    stagnant = [c > min(cur[:i]) - tol for i, c in enumerate(cur) if i]
+    if sweeps is not None:
+        assert len(cur) == sweeps
+    kept = cur
+    if len(cur) < cap:  # stopped by two stagnant sweeps, the first pair
+        assert stagnant[-2:] == [True, True]
+        assert not any(a and b for a, b in zip(stagnant[:-2],
+                                                stagnant[1:-1]))
+        kept = cur[:-1]  # the sweep that stops the loop is not kept
+    else:
+        assert len(cur) == cap
+    i_min = int(np.argmin(kept))
+    assert lam == kept[i_min] and torch.equal(y, restarts[i_min][3])
+    if sweeps is None:  # the cluster is approached over several sweeps
+        assert 3 < len(cur) < cap and lam == pytest.approx(-1.0, abs=1e-4)
+
+
 @pytest.mark.parametrize("eta", [0.0, 1e-4])
 def test_host_min_eig_repeats_within_a_process(critical, eta):
     """The host path's ARPACK calls start from seeded vectors: the same S
